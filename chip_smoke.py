@@ -1,21 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`fgoicp_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each failing the run (nonzero exit) on its first failed check:
   1. print the GPU's name and power limit (nvidia-smi) and the torch / CUDA
      versions; build the CUDA kernels from `fgoicp_tpu_torch/csrc` and print
      the build seconds;
   2. compare each kernel with its plain torch version on the card at the
-     main path's shapes (argmin idx equal, nn d2 rtol 1e-6, bounds
-     rtol 2e-4 / atol 2e-5) and time both with CUDA events;
+     main paths' shapes (argmin idx equal, nn d2 rtol 1e-6, bounds
+     rtol 2e-4 / atol 2e-5 and lb <= ub) and time both with CUDA events,
+     beside the kernel's bound (operations or bytes at the H100's published
+     peaks), one PyTorch library call where one computes the same function,
+     and, for the trimmed lanes, the unfused path (nearest-proxy kernel plus
+     the torch bisection bracket); and the bound of the one TPU kernel still
+     to port, `minplus_1d`, on the smoke target's distance field;
   3. run the default main path, `register(Config)` on cuda, on a seeded
      asymmetric 18,000 / 3,000-point pair with a known pose: it must
      certify (last_certified_gap <= sse_threshold) and recover the pose
      (R max-abs error < 5e-3, t error < 5e-3 x span); cold, then warm;
   4. the same with icp_multi_start = false, the search-only form of the
-     path, which must also bound translation nodes and launch every kernel.
+     path, which must also bound translation nodes and launch the NN and
+     lane kernels;
+  5. trimmed registration (trim = true, trim_fraction = 0.3) on a seeded
+     partial-overlap pair (20,000 target / 10,000 source points, 22.5 % of
+     the source outside the target's part of the curve), default and
+     search-only; both must certify and recover the pose, and the
+     search-only run must launch the trimmed lane kernel;
+  6. the grouped inner scheduler (frontier_mode = "grouped", search-only) on
+     the 18,000 / 3,000 pair; it must certify, recover the pose and launch
+     the grid kernel.
+Every launch counter is set to 0 just before each path and read just
+after.  With --profile, one warm trimmed search-only run is then traced
+with torch.profiler (device time by kernel, launch count).
 
 Earlier lines report walls, node counts, launch counts and a JSON line of
 the kernels; the last line is {"ok": true, "device": {...}}.  Needs a CUDA
@@ -34,16 +51,29 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def curve(rng, s, noise=0.01):
+    """Points of the seeded asymmetric 3D Lissajous curve at parameters s
+    (the JAX package's test generator, tests/test_goicp.py::_surface_cloud)."""
+    pts = np.stack([np.cos(s), 0.7 * np.sin(2.0 * s),
+                    0.4 * np.sin(3.0 * s + 0.5)], axis=1)
+    pts = pts + rng.normal(scale=noise, size=(len(s), 3))
+    return pts.astype(np.float32)
 
 
 def surface_cloud(rng, n, noise=0.01):
-    """Seeded asymmetric 3D Lissajous cloud (the JAX package's test
-    generator, tests/test_goicp.py::_surface_cloud)."""
-    s = rng.uniform(0.0, 4.5, size=(n,))
-    pts = np.stack([np.cos(s), 0.7 * np.sin(2.0 * s),
-                    0.4 * np.sin(3.0 * s + 0.5)], axis=1)
-    pts = pts + rng.normal(scale=noise, size=(n, 3))
-    return pts.astype(np.float32)
+    return curve(rng, rng.uniform(0.0, 4.5, size=(n,)), noise)
+
+
+def pose(span, angle=1.8):
+    c, s = np.cos(angle), np.sin(angle)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    return R, np.array([0.11, -0.07, 0.05], np.float32) * span
 
 
 def known_transform_pair(cloud, n_target, n_source, seed=5, angle=1.8):
@@ -53,12 +83,25 @@ def known_transform_pair(cloud, n_target, n_source, seed=5, angle=1.8):
     cloud = np.asarray(cloud, np.float32)
     ti = rng.choice(len(cloud), size=n_target, replace=False)
     si = rng.choice(len(cloud), size=n_source, replace=False)
-    c, s = np.cos(angle), np.sin(angle)
-    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
     span = float(np.ptp(cloud, axis=0).max())
-    t = np.array([0.11, -0.07, 0.05], np.float32) * span
+    R, t = pose(span, angle)
     pcs = (cloud[si] - t) @ R
     return cloud[ti], pcs, R, t, span
+
+
+def partial_overlap_pair(n_target=20000, n_source=10000, seed=3,
+                         noise=0.005):
+    """A partial-overlap scan pair at the scale of the JAX bench's
+    bunny_scans_000_045_trimmed line (20k / 10k points): the target samples
+    the curve over s in [0, 3.7], the source over [0.95, 4.5] (22.5 % of it
+    beyond the target's part), independently, with noise of about 0.2 % of
+    the span, moved by a known pose."""
+    rng = np.random.default_rng(seed)
+    pct = curve(rng, rng.uniform(0.0, 3.7, size=(n_target,)), noise)
+    src = curve(rng, rng.uniform(0.95, 4.5, size=(n_source,)), noise)
+    span = float(np.ptp(np.concatenate([pct, src]), axis=0).max())
+    R, t = pose(span)
+    return pct, (src - t) @ R, R, t, span
 
 
 def say(msg):
@@ -80,7 +123,48 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def compare_kernels(torch, pct, pcs):
+def bound(flops, nbytes):
+    """(ms, "operations" | "bytes"): the least time the card could take,
+    the larger of flops at the f32 peak and bytes at the HBM peak."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def report(name, shape, err, ms, plain_ms, flops, nbytes, library_ms=None):
+    """Print one kernel case (errors, times, bound) and return it as the
+    fields of its JSON row."""
+    bound_ms, bound_by = bound(flops, nbytes)
+    say(f"kernel {name} [{shape}]: max_abs_err {err!r}, kernel {ms!r} ms, "
+        f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}), "
+        f"library {library_ms!r} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def row(name, source, replaces, case):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, **case)
+
+
+def check_bounds(torch, name, got, want):
+    """Kernel (lb, ub) against the plain version's: rtol 2e-4 / atol 2e-5
+    and lb <= ub on every node.  Returns the max abs error."""
+    torch.cuda.synchronize()
+    for nm, k, p in (("lb", got[0], want[0]), ("ub", got[1], want[1])):
+        if not bool(torch.all(torch.isfinite(k))):
+            raise AssertionError(f"{name} {nm}: non-finite values")
+        if not torch.allclose(k, p, rtol=2e-4, atol=2e-5):
+            raise AssertionError(
+                f"{name} {nm}: max abs err {float((k - p).abs().max())} "
+                f"beyond rtol 2e-4 / atol 2e-5")
+    if not bool(torch.all(got[0] <= got[1] + 1e-5)):
+        raise AssertionError(f"{name}: lb > ub on some node")
+    return max(float((got[0] - want[0]).abs().max()),
+               float((got[1] - want[1]).abs().max()))
+
+
+def compare_kernels(torch, pct, pcs, trim_src):
     """Phase 2: every kernel against its plain version at main-path
     shapes.  Returns the JSON rows (launch counts filled in later)."""
     from fgoicp_tpu_torch.ops import bounds as bounds_ops
@@ -90,13 +174,15 @@ def compare_kernels(torch, pct, pcs):
 
     dev = pct.device
     rng = np.random.default_rng(11)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     proxy = coreset_ops.build(pct, size=1024, seed=0)
+    prox = proxy.points.contiguous()
+    n_prox = prox.shape[0]
+    slack = float(proxy.eps)
     clusters = coreset_ops.build_weighted(pcs, size=1024, seed=2)
     # 16 search-ICP lanes of the 3,000-point source, as the seeding sweep.
-    R16 = geo.quat_cube_to_matrix(torch.as_tensor(
-        rng.uniform(-0.5, 0.5, size=(16, 3)), dtype=torch.float32, device=dev))
-    t16 = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(16, 1, 3)),
-                          dtype=torch.float32, device=dev)
+    R16 = geo.quat_cube_to_matrix(f32(rng.uniform(-0.5, 0.5, size=(16, 3))))
+    t16 = f32(rng.uniform(-0.1, 0.1, size=(16, 1, 3)))
     q48k = (torch.einsum("grc,nc->gnr", R16, pcs) + t16).reshape(-1, 3).contiguous()
 
     def nn_case(name, kernel, plain, queries, points, reps, plain_reps):
@@ -113,15 +199,21 @@ def compare_kernels(torch, pct, pcs):
             raise AssertionError(f"{name}: d2 max abs err {err} beyond rtol 1e-6")
         ms = cuda_ms(torch, lambda: kernel(queries, points), reps)
         plain_ms = cuda_ms(torch, lambda: plain(queries, points), plain_reps)
-        shape = f"{queries.shape[0]}x{points.shape[0]}"
-        say(f"kernel {name} [{shape}]: max_abs_err {err!r}, "
-            f"kernel {ms!r} ms, plain {plain_ms!r} ms")
-        return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        # The library yardstick: exact pairwise distances, then the min.
+        reduce = (lambda d: torch.min(d, dim=1)) if isinstance(out_k, tuple) \
+            else (lambda d: torch.amin(d, dim=1))
+        lib_ms = cuda_ms(torch, lambda: reduce(torch.cdist(
+            queries, points, compute_mode="donot_use_mm_for_euclid_dist")),
+            plain_reps)
+        m, t = queries.shape[0], points.shape[0]
+        out_bytes = 4 * m * (2 if isinstance(out_k, tuple) else 1)
+        return report(name, f"{m}x{t}", err, ms, plain_ms, 8.0 * m * t,
+                      12.0 * (m + t) + out_bytes, lib_ms)
 
     # nn_argmin: search-ICP correspondences (16 x 3,000 against the 1,024
     # proxies) and the polish (3,000 against the 18,000-point target).
     a1 = nn_case("nn_argmin", cuda_nn.nn_argmin, cuda_nn.nn_argmin_plain,
-                 q48k, proxy.points, 50, 10)
+                 q48k, prox, 50, 10)
     nn_case("nn_argmin", cuda_nn.nn_argmin, cuda_nn.nn_argmin_plain,
             pcs, pct, 50, 10)
     # nn_min: the exact rescore (16 x 3,000 against 18,000) and the proxy
@@ -129,66 +221,199 @@ def compare_kernels(torch, pct, pcs):
     m1 = nn_case("nn_min", cuda_nn.nn_min, cuda_nn.nn_min_plain,
                  q48k, pct, 20, 3)
     nn_case("nn_min", cuda_nn.nn_min, cuda_nn.nn_min_plain,
-            pct, proxy.points, 50, 10)
+            pct, prox, 50, 10)
+
+    def groups(g, src, spans_lo=0.03, spans_hi=0.25, deltas=None):
+        """base [g, ns, 3] and (gam_ub, gam_lb) for g random rotation
+        groups, the first half fixed-rotation (the ub pass)."""
+        Rg = geo.quat_cube_to_matrix(f32(rng.uniform(-0.6, 0.6, size=(g, 3))))
+        base = torch.einsum("grc,nc->gnr", Rg, src).contiguous()
+        spans = f32(rng.uniform(spans_lo, spans_hi, size=(g,)))
+        fix = torch.arange(g, device=dev) < g // 2
+        gam_ub, gam_lb = bounds_ops.gamma_arrays(
+            torch.linalg.vector_norm(src, dim=-1), spans, fix,
+            point_deltas=deltas)
+        return base, gam_ub.contiguous(), gam_lb.contiguous()
+
+    def lanes_of(g, lanes):
+        gids = torch.as_tensor(rng.integers(0, g, size=(lanes,)),
+                               dtype=torch.int32, device=dev)
+        t_l = f32(rng.uniform(-0.5, 0.5, size=(lanes, 3)))
+        gam_t = geo.translation_uncertainty_radius(
+            f32(rng.uniform(0.05, 0.5, size=(lanes,))))
+        return gids, t_l, gam_t
+
+    def trimmed_flops(lanes, ns):
+        # The nearest-proxy loop, plus 27 passes of compares over both
+        # term arrays (26 bisection counts and the kept sums).
+        return 8.0 * lanes * ns * n_prox + 2.0 * 27 * lanes * ns
+
+    def lane_bytes(g, ns, lanes):
+        # base, gam_ub, gam_lb, w; gids, t, gam_t; proxies; lb, ub.
+        return 4.0 * (g * ns * 5 + ns + lanes * 5 + 3 * n_prox + 2 * lanes)
+
+    def bounds_case(name, kernel, plain, reps, plain_reps, shape, flops,
+                    nbytes):
+        got, want = kernel(), plain()
+        err = check_bounds(torch, name, got, want)
+        ms = cuda_ms(torch, kernel, reps)
+        plain_ms = cuda_ms(torch, plain, plain_reps)
+        return report(name, shape, err, ms, plain_ms, flops, nbytes)
 
     # fused_bounds_lanes: G = 256 groups (ub + lb pass of 128 children),
     # L = 1024 lanes, 1,024 cluster reps, 1,024 proxies.
-    g, lanes = 256, 1024
-    Rg = geo.quat_cube_to_matrix(torch.as_tensor(
-        rng.uniform(-0.6, 0.6, size=(g, 3)), dtype=torch.float32, device=dev))
-    reps = clusters.reps
-    base = torch.einsum("grc,nc->gnr", Rg, reps).contiguous()
-    spans = torch.as_tensor(rng.uniform(0.03, 0.25, size=(g,)),
-                            dtype=torch.float32, device=dev)
-    fix = torch.arange(g, device=dev) < g // 2
-    gam_ub, gam_lb = bounds_ops.gamma_arrays(
-        torch.linalg.vector_norm(reps, dim=-1), spans, fix,
-        point_deltas=clusters.deltas)
-    gam_ub, gam_lb = gam_ub.contiguous(), gam_lb.contiguous()
-    gids = torch.as_tensor(rng.integers(0, g, size=(lanes,)),
-                           dtype=torch.int32, device=dev)
-    t_l = torch.as_tensor(rng.uniform(-0.5, 0.5, size=(lanes, 3)),
-                          dtype=torch.float32, device=dev)
-    gam_t = geo.translation_uncertainty_radius(torch.as_tensor(
-        rng.uniform(0.05, 0.5, size=(lanes,)), dtype=torch.float32,
-        device=dev))
-    slack = float(proxy.eps)
+    g, lanes, reps_pts = 256, 1024, clusters.reps
+    base, gam_ub, gam_lb = groups(g, reps_pts, deltas=clusters.deltas)
+    gids, t_l, gam_t = lanes_of(g, lanes)
     w = clusters.weights.contiguous()
-    lb_k, ub_k = cuda_bounds.fused_bounds_lanes(
-        base, gids, t_l, proxy.points, gam_ub, gam_t, slack,
-        point_weights=w, gam_lb=gam_lb)
-    lb_p, ub_p = cuda_bounds.fused_bounds_lanes_plain(
-        base, gids, t_l, proxy.points, gam_ub, gam_lb, gam_t,
-        float(np.float32(slack)), w)
-    torch.cuda.synchronize()
-    err = max(float((lb_k - lb_p).abs().max()), float((ub_k - ub_p).abs().max()))
-    for nm, k, p in (("lb", lb_k, lb_p), ("ub", ub_k, ub_p)):
-        if not torch.allclose(k, p, rtol=2e-4, atol=2e-5):
-            raise AssertionError(
-                f"fused_bounds_lanes {nm}: max abs err "
-                f"{float((k - p).abs().max())} beyond rtol 2e-4 / atol 2e-5")
-    if not bool(torch.all(lb_k <= ub_k + 1e-5)):
-        raise AssertionError("fused_bounds_lanes: lb > ub on some lane")
-    ms = cuda_ms(torch, lambda: cuda_bounds.fused_bounds_lanes(
-        base, gids, t_l, proxy.points, gam_ub, gam_t, slack,
-        point_weights=w, gam_lb=gam_lb), 50)
-    plain_ms = cuda_ms(torch, lambda: cuda_bounds.fused_bounds_lanes_plain(
-        base, gids, t_l, proxy.points, gam_ub, gam_lb, gam_t,
-        float(np.float32(slack)), w), 5)
-    shape = f"G{g} L{lanes} ns{reps.shape[0]} P{proxy.points.shape[0]}"
-    say(f"kernel fused_bounds_lanes [{shape}]: max_abs_err {err!r}, "
-        f"kernel {ms!r} ms, plain {plain_ms!r} ms")
-    b1 = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    ns = reps_pts.shape[0]
+    b1 = bounds_case(
+        "fused_bounds_lanes",
+        lambda: cuda_bounds.fused_bounds_lanes(
+            base, gids, t_l, prox, gam_ub, gam_t, slack, point_weights=w,
+            gam_lb=gam_lb),
+        lambda: cuda_bounds.fused_bounds_lanes_plain(
+            base, gids, t_l, prox, gam_ub, gam_lb, gam_t,
+            float(np.float32(slack)), w),
+        50, 5, f"G{g} L{lanes} ns{ns} P{n_prox}", 8.0 * lanes * ns * n_prox,
+        lane_bytes(g, ns, lanes))
 
+    # fused_bounds_lanes_trimmed: the trimmed pooled lanes of the partial-
+    # overlap pair, L = 1024 lanes over the full 10,000-point source,
+    # n_drop = 3,000 (trim_fraction 0.3); and a few lanes of a 30,000-point
+    # source, whose terms exceed shared memory (scratch path).
+    ns5 = trim_src.shape[0]
+    n_drop = int(round(0.3 * ns5))
+    base5, gub5, glb5 = groups(g, trim_src)
+    gids5, t5, gt5 = lanes_of(g, lanes)
+    ones5 = torch.ones(ns5, dtype=torch.float32, device=dev)
+    trimmed = lambda: cuda_bounds.fused_bounds_lanes_trimmed(
+        base5, gids5, t5, prox, gub5, gt5, slack, n_drop, gam_lb=glb5)
+    b5 = bounds_case(
+        "fused_bounds_lanes_trimmed", trimmed,
+        lambda: cuda_bounds.fused_bounds_lanes_trimmed_plain(
+            base5, gids5, t5, prox, gub5, glb5, gt5,
+            float(np.float32(slack)), ones5, n_drop),
+        10, 1, f"G{g} L{lanes} ns{ns5} P{n_prox} n_drop{n_drop}",
+        trimmed_flops(lanes, ns5), lane_bytes(g, ns5, lanes))
+
+    def unfused():
+        """The unfused trimmed lane path: the nearest-proxy kernel on all
+        L x ns queries, then the torch terms and bisection brackets."""
+        lb_pt, ub_pt = bounds_ops.point_terms(
+            proxy_backend, base5[gids5.long()] + t5[:, None, :],
+            gub5[gids5.long()], glb5[gids5.long()], gt5)
+        keep = ns5 - n_drop
+        return (bounds_ops.reduce_point_terms(lb_pt, None, keep,
+                                              drop_mode="over"),
+                bounds_ops.reduce_point_terms(ub_pt, None, keep,
+                                              drop_mode="under"))
+
+    proxy_backend = bounds_ops.ProxyBackend(coreset=proxy)
+    # The unfused path forms each trimmed bound as a lane total minus its
+    # drop sum, so its rounding shows relative to the untrimmed total
+    # (rtol 2e-4 of it).
+    fused, plain_u = trimmed(), unfused()
+    totals = cuda_bounds.fused_bounds_lanes(base5, gids5, t5, prox, gub5,
+                                            gt5, slack, gam_lb=glb5)
+    err_u = 0.0
+    for k, p, tot in zip(fused, plain_u, totals):
+        err = (k - p).abs()
+        err_u = max(err_u, float(err.max()))
+        if not bool(torch.all(err <= 2e-5 + 2e-4 * tot.abs())):
+            raise AssertionError(f"unfused trimmed lanes: max abs err "
+                                 f"{float(err.max())} beyond 2e-4 of the "
+                                 f"lane totals")
+    unfused_ms = cuda_ms(torch, unfused, 5)
+    b5_again_ms = cuda_ms(torch, trimmed, 10)
+    say(f"trimmed lanes, fused kernel vs unfused path (nn_min kernel + "
+        f"torch bracket): fused {b5['ms']!r} / "
+        f"{b5_again_ms!r} ms, unfused {unfused_ms!r} ms, max_abs_err "
+        f"{err_u!r}")
+
+    src30 = torch.cat([trim_src, trim_src * 0.97, trim_src * 1.03])
+    base6, gub6, glb6 = groups(8, src30)
+    gids6, t6, gt6 = lanes_of(8, 32)
+    ones6 = torch.ones(src30.shape[0], dtype=torch.float32, device=dev)
+    n_drop6 = int(round(0.3 * src30.shape[0]))
+    bounds_case(
+        "fused_bounds_lanes_trimmed",
+        lambda: cuda_bounds.fused_bounds_lanes_trimmed(
+            base6, gids6, t6, prox, gub6, gt6, slack, n_drop6, gam_lb=glb6),
+        lambda: cuda_bounds.fused_bounds_lanes_trimmed_plain(
+            base6, gids6, t6, prox, gub6, glb6, gt6,
+            float(np.float32(slack)), ones6, n_drop6),
+        5, 1, f"G8 L32 ns{src30.shape[0]} P{n_prox} n_drop{n_drop6} "
+              f"(terms in scratch)", trimmed_flops(32, src30.shape[0]),
+        lane_bytes(8, src30.shape[0], 32))
+
+    # fused_bounds: the grouped scheduler's grid, G = 256 groups x B = 32
+    # translation nodes over the full 3,000-point source.
+    n_trans, ns4 = 32, pcs.shape[0]
+    base4, gub4, glb4 = groups(g, pcs)
+    tc4 = f32(rng.uniform(-0.5, 0.5, size=(g, n_trans, 3)))
+    gt4 = geo.translation_uncertainty_radius(
+        f32(rng.uniform(0.05, 0.5, size=(g, n_trans))))
+    ones4 = torch.ones(ns4, dtype=torch.float32, device=dev)
+    b4 = bounds_case(
+        "fused_bounds",
+        lambda: cuda_bounds.fused_bounds(base4, tc4, prox, gub4, gt4, slack,
+                                         gam_lb=glb4),
+        lambda: cuda_bounds.fused_bounds_plain(
+            base4, tc4, prox, gub4, glb4, gt4, float(np.float32(slack)),
+            ones4),
+        10, 1, f"G{g} B{n_trans} ns{ns4} P{n_prox}",
+        8.0 * g * n_trans * ns4 * n_prox,
+        4.0 * (g * ns4 * 5 + ns4 + g * n_trans * 6 + 3 * n_prox))
+
+    bounds_src = "fgoicp_tpu_torch/csrc/"
     return [
-        dict(name="nn_argmin", route="cuda", source="fgoicp_tpu_torch/csrc/nn.cu",
-             replaces="fgoicp_tpu/ops/pallas_nn.py:106", **a1),
-        dict(name="nn_min", route="cuda", source="fgoicp_tpu_torch/csrc/nn.cu",
-             replaces="fgoicp_tpu/ops/pallas_nn.py:152", **m1),
-        dict(name="fused_bounds_lanes", route="cuda",
-             source="fgoicp_tpu_torch/csrc/bounds_lanes.cu",
-             replaces="fgoicp_tpu/ops/pallas_bounds.py:311", **b1),
+        row("nn_argmin", "fgoicp_tpu_torch/csrc/nn.cu",
+            "fgoicp_tpu/ops/pallas_nn.py:106", a1),
+        row("nn_min", "fgoicp_tpu_torch/csrc/nn.cu",
+            "fgoicp_tpu/ops/pallas_nn.py:152", m1),
+        row("fused_bounds_lanes", bounds_src + "bounds_lanes.cu",
+            "fgoicp_tpu/ops/pallas_bounds.py:311", b1),
+        row("fused_bounds_lanes_trimmed", bounds_src + "bounds_lanes_trimmed.cu",
+            "fgoicp_tpu/ops/pallas_bounds.py:227", b5),
+        row("fused_bounds", bounds_src + "bounds_grid.cu",
+            "fgoicp_tpu/ops/pallas_bounds.py:404", b4),
     ]
+
+
+def minplus_bound(pct, resolution=0.005):
+    """The bound of the TPU kernel still to port, `minplus_1d` (the LUT
+    backend's exact EDT, fgoicp_tpu/ops/pallas_minplus.py:75), on the
+    smoke target's distance field at the default lut_resolution: dims =
+    ceil(range / res) + 1 nodes per axis (distance_field.grid_dims), one
+    pass per axis over L = cells / n lines of n nodes, an add and a min per
+    (line, i, j) with the parabola table precomputed, against one read and
+    one write of the field.  Arithmetic only: nothing runs on the card."""
+    span = (pct.amax(dim=0) - pct.amin(dim=0)).cpu().numpy()
+    dims = [int(np.ceil(float(s) / resolution)) + 1 for s in span]
+    cells = int(np.prod(dims))
+    total = 0.0
+    for n in dims:
+        ms, bound_by = bound(2.0 * cells * n, 8.0 * cells)
+        total += ms
+        say(f"kernel minplus_1d (still to port) [{cells // n}x{n}]: bound "
+            f"{ms!r} ms ({bound_by})")
+    say(f"kernel minplus_1d (still to port): EDT of the {dims} field, "
+        f"bound {total!r} ms over its 3 passes, library none")
+
+
+def write_config(name, pct_np, pcs_np, params):
+    from fgoicp_tpu_torch import Config, load_cloud, write_ply
+    tgt, src = WORK / f"{name}_target.ply", WORK / f"{name}_source.ply"
+    toml = WORK / f"{name}.toml"
+    write_ply(str(tgt), pct_np)
+    write_ply(str(src), pcs_np)
+    toml.write_text(f'[io]\ntarget = "{tgt}"\nsource = "{src}"\n\n'
+                    f'[params]\n{params}\n\n[engine]\nseed = 0\n')
+    cfg = Config.from_toml(str(toml))
+    # The reference clamps source_subsample to <= 0.5; the clouds are loaded
+    # whole and handed to register so the source keeps all its points.
+    return cfg, load_cloud(cfg.io.target), load_cloud(cfg.io.source)
 
 
 def main() -> int:
@@ -198,7 +423,7 @@ def main() -> int:
               "run needs a CUDA GPU", file=sys.stderr)
         return 1
 
-    from fgoicp_tpu_torch import Config, load_cloud, register, write_ply
+    from fgoicp_tpu_torch import register
     from fgoicp_tpu_torch.kernels import build
     from fgoicp_tpu_torch.ops import cuda_bounds, cuda_nn
     from fgoicp_tpu_torch.ops import geometry as geo
@@ -215,45 +440,47 @@ def main() -> int:
     say(f"kernel build: {time.time() - t0:.3f} s ({lib._name})")
 
     # The smoke pair: seed-0 Lissajous cloud of 24,000 points cut into an
-    # 18,000-point target and a 3,000-point source moved by a known pose.
+    # 18,000-point target and a 3,000-point source moved by a known pose;
+    # and the trimmed phase's partial-overlap pair.
     cloud = surface_cloud(np.random.default_rng(0), 24000)
-    pct_np, pcs_np, R_true, t_true, span = known_transform_pair(
-        cloud, 18000, 3000)
+    pair = known_transform_pair(cloud, 18000, 3000)
+    trim_pair = partial_overlap_pair()
     dev = torch.device("cuda")
 
     # Phase 2: kernels against their plain versions, in the normalized frame.
-    norm = geo.Normalization(torch.from_numpy(pct_np).to(dev),
-                             torch.from_numpy(pcs_np).to(dev))
+    norm = geo.Normalization(torch.from_numpy(pair[0]).to(dev),
+                             torch.from_numpy(pair[1]).to(dev))
+    trim_norm = geo.Normalization(torch.from_numpy(trim_pair[0]).to(dev),
+                                  torch.from_numpy(trim_pair[1]).to(dev))
     kernels = compare_kernels(torch, norm.pct.contiguous(),
-                              norm.pcs.contiguous())
+                              norm.pcs.contiguous(),
+                              trim_norm.pcs.contiguous())
+    minplus_bound(norm.pct)
 
-    # Phases 3 and 4: the main path through register(Config).
+    # Phases 3 to 6: the main paths through register(Config).
     WORK.mkdir(parents=True, exist_ok=True)
-    tgt, src, toml = WORK / "target.ply", WORK / "source.ply", WORK / "smoke.toml"
-    write_ply(str(tgt), pct_np)
-    write_ply(str(src), pcs_np)
-    toml.write_text(f'[io]\ntarget = "{tgt}"\nsource = "{src}"\n\n'
-                    '[params]\nmse_threshold = 1e-3\n\n[engine]\nseed = 0\n')
-    cfg = Config.from_toml(str(toml))
-    # The reference clamps source_subsample to <= 0.5; the clouds are loaded
-    # whole and handed to register so the source keeps its 3,000 points.
-    pct_in, pcs_in = load_cloud(cfg.io.target), load_cloud(cfg.io.source)
+    counted = (cuda_nn.nn_argmin, cuda_nn.nn_min,
+               cuda_bounds.fused_bounds_lanes,
+               cuda_bounds.fused_bounds_lanes_trimmed,
+               cuda_bounds.fused_bounds)
+    launches = {fn.__name__: 0 for fn in counted}
 
-    counted = (cuda_nn.nn_argmin, cuda_nn.nn_min, cuda_bounds.fused_bounds_lanes)
-    for fn in counted:
-        fn.launches = 0
-
-    def drive(label, multi_start):
-        cfg.engine.icp_multi_start = multi_start
+    def drive(label, cfg, pct_in, pcs_in, truth, **engine):
+        """Cold then warm register(); returns each run's launches."""
+        _, _, R_true, t_true, span = truth
+        for key, value in engine.items():
+            setattr(cfg.engine, key, value)
         out = {}
         for run in ("cold", "warm"):
-            before = {fn.__name__: fn.launches for fn in counted}
+            for fn in counted:
+                fn.launches = 0
             t_run = time.time()
             model, R, t = register(cfg, pct_in, pcs_in, device="cuda")
             torch.cuda.synchronize()
             wall = time.time() - t_run
-            launched = {fn.__name__: fn.launches - before[fn.__name__]
-                        for fn in counted}
+            launched = {fn.__name__: fn.launches for fn in counted}
+            for key, n in launched.items():
+                launches[key] += n
             R, t = np.asarray(R), np.asarray(t)
             r_err = float(np.abs(R - R_true).max())
             t_err = float(np.abs(t - t_true).max() / span)
@@ -264,7 +491,8 @@ def main() -> int:
                 f"R err {r_err!r}, t err/span {t_err!r}, translation_nodes "
                 f"{s.translation_nodes}, rotation_children "
                 f"{s.rotation_children}, outer_steps {s.outer_steps}, "
-                f"icp_runs {s.icp_runs}, launches {launched}")
+                f"inner_loop_steps {s.inner_loop_steps}, icp_runs "
+                f"{s.icp_runs}, launches {launched}")
             if R.shape != (3, 3) or t.shape != (3,) or not (
                     np.all(np.isfinite(R)) and np.all(np.isfinite(t))):
                 raise AssertionError(f"{label}: non-finite or misshapen pose")
@@ -275,23 +503,76 @@ def main() -> int:
             out[run] = dict(model=model, launched=launched)
         return out
 
-    drive("default", True)
-    search = drive("search-only", False)
-    launches = {fn.__name__: fn.launches for fn in counted}
-    for run in ("cold", "warm"):
-        if search[run]["model"].stats.translation_nodes <= 0:
-            raise AssertionError("search-only: no translation node bounded")
-        missing = [k for k, v in search[run]["launched"].items() if v <= 0]
-        if missing:
-            raise AssertionError(f"search-only {run}: kernels {missing} "
-                                 f"never launched on the main path")
-    for row in kernels:
-        row["launches"] = launches[row["name"]]
+    def require(label, runs, names, nodes=True):
+        for run in ("cold", "warm"):
+            if nodes and runs[run]["model"].stats.translation_nodes <= 0:
+                raise AssertionError(f"{label}: no translation node bounded")
+            missing = [k for k in names if runs[run]["launched"][k] <= 0]
+            if missing:
+                raise AssertionError(f"{label} {run}: kernels {missing} "
+                                     f"never launched on the main path")
+
+    cfg, pct_in, pcs_in = write_config(
+        "smoke", pair[0], pair[1], "mse_threshold = 1e-3")
+    drive("default", cfg, pct_in, pcs_in, pair, icp_multi_start=True)
+    search = drive("search-only", cfg, pct_in, pcs_in, pair,
+                   icp_multi_start=False)
+    require("search-only", search,
+            ["nn_argmin", "nn_min", "fused_bounds_lanes"])
+
+    tcfg, tpct_in, tpcs_in = write_config(
+        "trimmed", trim_pair[0], trim_pair[1],
+        "mse_threshold = 1e-3\ntrim = true\ntrim_fraction = 0.3")
+    drive("trimmed default", tcfg, tpct_in, tpcs_in, trim_pair,
+          icp_multi_start=True)
+    tsearch = drive("trimmed search-only", tcfg, tpct_in, tpcs_in, trim_pair,
+                    icp_multi_start=False)
+    require("trimmed search-only", tsearch,
+            ["nn_argmin", "nn_min", "fused_bounds_lanes_trimmed"])
+
+    grouped = drive("grouped search-only", cfg, pct_in, pcs_in, pair,
+                    icp_multi_start=False, frontier_mode="grouped")
+    require("grouped search-only", grouped,
+            ["nn_argmin", "nn_min", "fused_bounds"])
+    cfg.engine.frontier_mode = "pooled"
+
+    for krow in kernels:
+        krow["launches"] = launches[krow["name"]]
+    if "--profile" in sys.argv[1:]:
+        profile_trimmed(torch, register, tcfg, tpct_in, tpcs_in)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile_trimmed(torch, register, cfg, pct_in, pcs_in):
+    """One warm trimmed search-only register() under torch.profiler: device
+    time by kernel, the device busy share and the launch count."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg.engine.icp_multi_start = False
+    register(cfg, pct_in, pcs_in, device="cuda")  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # Timed inside the block: leaving it post-processes the trace.
+        t_run = time.time()
+        register(cfg, pct_in, pcs_in, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t_run
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.self_device_time_total for e in events)
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    say(f"profile trimmed search-only (warm): wall {wall!r} s, device busy "
+        f"{busy_us / 1e6!r} s ({100 * busy_us / 1e6 / wall!r} %), kernel "
+        f"launches {n_launch}")
+    say(prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=15, max_name_column_width=60))
 
 
 if __name__ == "__main__":

@@ -1,14 +1,16 @@
 """Build and load the hand-written Hopper kernels (`fgoicp_tpu_torch/csrc`).
 
-The CUDA sources have a plain C interface (no PyTorch headers), so one nvcc
-call compiles them in seconds into a shared library that is loaded with
-ctypes:
+The CUDA sources have a plain C interface (no PyTorch headers), so nvcc
+compiles them in seconds: one nvcc per source, all started together, then
+one link into a shared library that is loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o build/fgoicp_tpu_torch/<lib>.so csrc/*.cu
+         -Xcompiler -fPIC -c csrc/<name>.cu -o build/fgoicp_tpu_torch/<hash>/<name>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib>.so *.o
 
-The library name carries a hash of the sources and flags, so an edited
-source is rebuilt at its first use and a stale library is never loaded.
+The library name carries a hash of the sources (`*.cu` and `*.cuh`) and
+flags, so an edited source is rebuilt at its first use and a stale library
+is never loaded.
 `--fmad=false` (and no `--use_fast_math`) keeps every multiply and add
 rounded on its own, the way PyTorch's elementwise kernels round them, so the
 kernels agree with their plain torch versions bit for bit where the
@@ -31,8 +33,9 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fgoicp_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +50,16 @@ _SIGNATURES = {
     #  G, ns, P, L, lb_out, ub_out, stream)
     "fgoicp_bounds_lanes": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
                             _I, _I, _I, _I, _P, _P, _P),
+    # (base, t_centers, proxies, gam_ub, gam_lb, gam_t, w, slack,
+    #  G, B, ns, P, lb_out, ub_out, stream)
+    "fgoicp_bounds_grid": (_P, _P, _P, _P, _P, _P, _P, _F,
+                           _I, _I, _I, _I, _P, _P, _P),
+    # (ns, P, int* fits)
+    "fgoicp_bounds_lanes_trimmed_fits": (_I, _I, ctypes.POINTER(_I)),
+    # (base, gids, t, proxies, gam_ub, gam_lb, gam_t, w, slack,
+    #  G, ns, P, L, n_drop, scratch, lb_out, ub_out, stream)
+    "fgoicp_bounds_lanes_trimmed": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
+                                    _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -69,10 +82,22 @@ def sources() -> list[pathlib.Path]:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfgoicp_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
 @functools.cache
@@ -81,16 +106,17 @@ def load() -> ctypes.CDLL:
     declare every entry point's argument and return types."""
     lib_path = library_path()
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        obj_dir = BUILD_DIR / f"{lib_path.stem}.{os.getpid()}"
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        objs = [obj_dir / f"{s.stem}.o" for s in sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+              for s, o in zip(sources(), objs)])
         tmp = lib_path.with_name(lib_path.name + f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sources()]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        _run([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs]]])
         os.replace(tmp, lib_path)
+        shutil.rmtree(obj_dir, ignore_errors=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -16,18 +16,24 @@ parity with FastGoICP (reference fgoicp/fgoicp.{hpp,cpp}):
 
 The outer priority queue stays on the host; each outer step pops a batch
 of rotation nodes and evaluates all their children's inner searches in one
-pooled frontier call (ops/pool_frontier.py), whose lanes run the fused
-bounds kernel on the card.  Triggered ICPs run as width-compacted batched
-ICP (models/icp.py) on the nearest-neighbour kernels.
+inner-BnB call: the pooled frontier (ops/pool_frontier.py, the default),
+whose lanes run the fused lane kernels on the card, or the grouped
+scheduler (ops/frontier.py, `frontier_mode="grouped"`), which runs the
+fused grid kernel.  Triggered ICPs run as width-compacted batched ICP
+(models/icp.py) on the nearest-neighbour kernels.
+
+Trimming (trim_fraction > 0): the objective keeps the trim_keep =
+round(ns * (1 - trim_fraction)) smallest residuals, in the bounds (trimmed
+lane kernel, or the member-level clustered trim when source clusters are
+set explicitly) and in every ICP and incumbent SSE.
 
 Within one outer batch, all children see the incumbent from the start of
 the step (the reference lets child k see child k-1's ICP improvement); this
 only weakens in-search pruning slightly.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the device outer loop, the grouped scheduler, pool_update="merge", the LUT
-backend, trimming, meshes, the serving hand-offs, checkpoints and the
-search-state sanitizer.
+the device outer loop, pool_update="merge", the LUT backend, meshes, the
+serving hand-offs, checkpoints and the search-state sanitizer.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..config import Config, EngineConfig
 from ..io import load_cloud
 from ..ops import bounds as bounds_ops
 from ..ops import coreset as coreset_ops
+from ..ops import frontier as frontier_ops
 from ..ops import geometry as geo
 from ..ops import pool_frontier
 from ..utils import logging as log
@@ -97,8 +104,8 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_engine(e: EngineConfig, bound_backend: str, trim_fraction: float,
-                  mesh, seed_pose_centered, shared_proxy):
+def _check_engine(e: EngineConfig, bound_backend: str, mesh,
+                  seed_pose_centered, shared_proxy):
     """Reject engine options this port does not run yet, naming the ROADMAP
     item that ports each; unknown values raise ValueError as in JAX."""
     if e.outer_mode not in ("host", "device"):
@@ -110,14 +117,11 @@ def _check_engine(e: EngineConfig, bound_backend: str, trim_fraction: float,
     unported = [
         (e.outer_mode == "device",
          "outer_mode='device' is ROADMAP Queue 1 item 11"),
-        (e.frontier_mode == "grouped",
-         "frontier_mode='grouped' is ROADMAP Queue 1 item 15"),
         (e.pool_update == "merge",
          "pool_update='merge' is not ported (ROADMAP Queue 1 item 7 ports "
          "'sort' only)"),
         (bound_backend == "lut",
          "bound_backend='lut' is ROADMAP Queue 1 item 14"),
-        (trim_fraction > 0.0, "trimming is ROADMAP Queue 1 item 10"),
         (mesh is not None or e.mesh_cubes * e.mesh_points > 1,
          "meshes are ROADMAP Queue 1 item 16 (multi-GPU)"),
         (seed_pose_centered is not None or shared_proxy is not None,
@@ -165,8 +169,8 @@ class GoICP:
                     f"{name} cloud needs at least 3 points, got {pc.shape[0]}")
             if not np.all(np.isfinite(pc)):
                 raise ValueError(f"{name} cloud contains NaN/inf values")
-        _check_engine(e, bound_backend, trim_fraction, mesh,
-                      seed_pose_centered, shared_proxy)
+        _check_engine(e, bound_backend, mesh, seed_pose_centered,
+                      shared_proxy)
         _check_fp32_matmul()
         self.device = _resolve_device(device)
         dev = self.device
@@ -177,6 +181,8 @@ class GoICP:
         self.pcs = self.norm.pcs   # normalized source
         self.mse_threshold = mse_threshold
         self.sse_threshold = float(self.ns * mse_threshold)  # fgoicp.hpp:23
+        self.trim_keep = (None if trim_fraction <= 0.0 else
+                          max(1, int(round(self.ns * (1.0 - trim_fraction)))))
         self.backend = bounds_ops.make_backend(
             self.pct, kind=bound_backend, proxy_size=proxy_size, seed=e.seed)
 
@@ -192,21 +198,31 @@ class GoICP:
         # Search-phase ICP source subsample (config.icp_search_subsample):
         # iteration-only, every incumbent is re-anchored by an exact
         # full-cloud NN pass in _icp.  Only when it cuts the per-iteration
-        # work at least 2x.
+        # work at least 2x.  A trimmed engine keeps the same kept share of
+        # the subsample.
         self._icp_search_src = None
+        self._icp_search_trim = self.trim_keep
         k_sub = e.icp_search_subsample
         if 0 < 2 * k_sub <= self.ns:
             sub = np.sort(np.random.default_rng(
                 e.seed + 7).permutation(self.ns)[:k_sub])
             self._icp_search_src = self.pcs[torch.from_numpy(sub).to(dev)]
+            if self.trim_keep is not None:
+                self._icp_search_trim = max(1, int(round(
+                    k_sub * self.trim_keep / self.ns)))
 
         # Hierarchical source clusters for search bounds (config docstring).
+        # A trimmed engine builds them only when source_coreset is set
+        # explicitly: trimmed cluster bounds carry the cluster radius on both
+        # drop estimates, so the auto rule keeps trimmed engines on
+        # full-source bounds (as the JAX package does).
         self.src_clusters = None
         src_k = e.source_coreset
         if src_k < 0:  # auto (config.py rule)
             src_k = (0 if self.ns <= 2048 else int(min(4096, max(
                 1024, 2 ** round(math.log2(self.ns / 3))))))
-        if src_k > 0 and self.ns > src_k:
+        if src_k > 0 and self.ns > src_k and (
+                self.trim_keep is None or e.source_coreset > 0):
             self.src_clusters = coreset_ops.build_weighted(
                 self.pcs, size=src_k, seed=e.seed + 2)
             log.debug(f"Source clusters: {src_k} reps, max radius "
@@ -265,19 +281,20 @@ class GoICP:
         on the source subsample when one is configured; the final pose is
         then re-scored with one exact full-cloud NN pass, so the incumbent
         stays a true achievable SSE.  Returns numpy (sse, R, t)."""
-        target, src = self.pct, self.pcs
+        target, src, trim = self.pct, self.pcs, self.trim_keep
         if search:
             if self._icp_search_target is not None:
                 target = self._icp_search_target
             if self._icp_search_src is not None:
-                src = self._icp_search_src
+                src, trim = self._icp_search_src, self._icp_search_trim
         mi = max_iter if max_iter is not None else self.engine.icp_max_iter
         sse, R, t = icp_model.icp_batched(
             target, src, self._tensor(R0), self._tensor(t0),
             active=torch.as_tensor(active, device=self.device),
-            max_iter=mi, convergence_threshold=convergence)
+            max_iter=mi, convergence_threshold=convergence, trim_keep=trim)
         if target is not self.pct or src is not self.pcs:
-            sse = icp_model.exact_sse_batched(self.pct, self.pcs, R, t)
+            sse = icp_model.exact_sse_batched(self.pct, self.pcs, R, t,
+                                              trim_keep=self.trim_keep)
         return sse.cpu().numpy(), R.cpu().numpy(), t.cpu().numpy()
 
     def _icp_padded(self, R0, t0, n_active, convergence, search=False,
@@ -422,8 +439,9 @@ class GoICP:
         return eval_list
 
     def _evaluate_children(self, children):
-        """One pooled inner-BnB call: ub-pass (fixed rotation, lanes [0:G))
-        and lb-pass (lanes [G:2G)) groups for all children."""
+        """One inner-BnB call (pooled, or grouped by frontier_mode): ub-pass
+        (fixed rotation, groups [0:G)) and lb-pass (groups [G:2G)) for all
+        children."""
         e = self.engine
         g = self.n_groups
         n = len(children)
@@ -438,20 +456,31 @@ class GoICP:
                           torch.zeros(g, dtype=torch.bool)]).to(self.device)
         act2 = torch.cat([active, active])
 
-        if self.src_clusters is not None:
-            search_pcs = self.src_clusters.reps
-            pw, pd = self.src_clusters.weights, self.src_clusters.deltas
+        best, thr = (float(np.float32(self.best_sse)),
+                     float(np.float32(self.sse_threshold)))
+        if e.frontier_mode == "pooled":
+            if self.src_clusters is not None:
+                search_pcs = self.src_clusters.reps
+                pw, pd = self.src_clusters.weights, self.src_clusters.deltas
+            else:
+                search_pcs, pw, pd = self.pcs, None, None
+            st = pool_frontier.bnb_r3_pooled(
+                self.backend, search_pcs, R2, spans2, fix2, best, thr,
+                group_active=act2, min_span=e.translation_min_span,
+                lanes=e.pool_lanes, capacity=e.pool_capacity,
+                ref_compat_gamma=e.ref_compat_gamma,
+                trim_keep=self.trim_keep, point_weights=pw, point_deltas=pd,
+                err_share_from=self._share,
+                trim_ns=(self.ns if self.trim_keep is not None else None),
+                pool_update=e.pool_update)
         else:
-            search_pcs, pw, pd = self.pcs, None, None
-        st = pool_frontier.bnb_r3_pooled(
-            self.backend, search_pcs, R2, spans2, fix2,
-            float(np.float32(self.best_sse)),
-            float(np.float32(self.sse_threshold)),
-            group_active=act2, min_span=e.translation_min_span,
-            lanes=e.pool_lanes, capacity=e.pool_capacity,
-            ref_compat_gamma=e.ref_compat_gamma, point_weights=pw,
-            point_deltas=pd, err_share_from=self._share,
-            pool_update=e.pool_update)
+            # The grouped scheduler bounds the full source, never clusters.
+            st = frontier_ops.bnb_r3_batched(
+                self.backend, self.pcs, R2, spans2, fix2, best, thr,
+                group_active=act2, min_span=e.translation_min_span,
+                batch=e.translation_batch, capacity=e.frontier_capacity,
+                ref_compat_gamma=e.ref_compat_gamma,
+                trim_keep=self.trim_keep)
 
         # Rotation lb = the lb-pass result: min(achieved, pruning incumbent)
         # keeps the threshold-slack guarantee when twin err-sharing ends a
@@ -462,7 +491,7 @@ class GoICP:
             a.cpu().numpy() for a in (st.best_ub[:g], st.best_t[:g], lb_raw,
                                       st.dropped_lb[g:], R))
         evaluated = int(torch.sum(st.evaluated))
-        dropped = int(st.dropped)
+        dropped = int(torch.sum(st.dropped))
         ub, best_t = ub_g[:n], bt_g[:n]
         lb_raw, drop_clamp = lb_raw_g[:n], drop_g[:n]
         lb = np.minimum(lb_raw, drop_clamp)

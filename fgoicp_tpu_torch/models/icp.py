@@ -28,13 +28,36 @@ def _masked(pred: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
 
 
 def _unported(trim_keep, point_weights, pcs):
-    if trim_keep is not None:
-        raise NotImplementedError(
-            "trimmed ICP (trim_keep) is ROADMAP Queue 1 item 10 (trimming)")
+    if point_weights is not None and trim_keep is not None \
+            and trim_keep < pcs.shape[-2]:
+        # Padding zeros would displace real points from the trim keep-set.
+        raise ValueError("point_weights cannot combine with trim_keep")
     if point_weights is not None or pcs.ndim == 3:
         raise NotImplementedError(
             "point_weights and per-lane [G, ns, 3] sources are the serving "
             "mode, ROADMAP Queue 1 item 13")
+
+
+def _trimmed(trim_keep, ns):
+    return trim_keep is not None and trim_keep < ns
+
+
+def trimmed_sum(d2: torch.Tensor, trim_keep) -> torch.Tensor:
+    """Sum of the trim_keep smallest entries of d2 [G, ns] per lane (all
+    of them without trimming)."""
+    if not _trimmed(trim_keep, d2.shape[-1]):
+        return torch.sum(d2, dim=-1)
+    return torch.sum(torch.topk(d2, trim_keep, dim=-1, largest=False).values,
+                     dim=-1)
+
+
+def trim_mask(d2: torch.Tensor, trim_keep):
+    """1 for the points whose d2 is at most the trim_keep-th smallest (ties
+    keep extra points, as in the JAX package), else 0; None untrimmed."""
+    if not _trimmed(trim_keep, d2.shape[-1]):
+        return None
+    thr = torch.kthvalue(d2, trim_keep, dim=-1).values
+    return (d2 <= thr[..., None]).to(torch.float32)
 
 
 def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
@@ -45,7 +68,9 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
 
     pct [nt, 3] target, pcs [ns, 3] source, R0 [G, 3, 3], t0 [G, 3]
     float32 tensors on one device; active [G] bool (inactive lanes are
-    skipped).  Returns (sse [G], R [G, 3, 3], t [G, 3]).
+    skipped).  trim_keep: Procrustes takes only the trim_keep best
+    correspondences and the SSE sums only the trim_keep smallest residuals
+    (trimmed ICP).  Returns (sse [G], R [G, 3, 3], t [G, 3]).
     """
     _unported(trim_keep, point_weights, pcs)
     if target_axis is not None:
@@ -72,12 +97,12 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
         # carried from the previous iteration's single NN pass: the SSE
         # query of iteration k is the correspondence query of k+1.
         corr = pct[idx.long()]
-        R_, t_ = proc_ops.procrustes(cur, corr)
+        R_, t_ = proc_ops.procrustes(cur, corr, mask=trim_mask(d2, trim_keep))
         new_cur = torch.einsum("grc,gnc->gnr", R_, cur) + t_[:, None, :]
         new_R = torch.einsum("gab,gbc->gac", R_, R)
         new_t = torch.einsum("gab,gb->ga", R_, t) + t_
         d2n, idxn = nn_query(new_cur)
-        new_sse = torch.sum(d2n, dim=-1)
+        new_sse = trimmed_sum(d2n, trim_keep)
 
         last_sse = _masked(run, sse, last_sse)
         sse = _masked(run, new_sse, sse)
@@ -103,16 +128,17 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
 def exact_sse_batched(pct: torch.Tensor, pcs: torch.Tensor, R: torch.Tensor,
                       t: torch.Tensor, trim_keep=None, target_axis=None,
                       point_weights=None) -> torch.Tensor:
-    """Exact SSE [G] of G poses against the full target, in one NN pass —
-    used to re-anchor incumbents produced by proxy-target search ICPs on
-    the true objective (models/goicp.py)."""
+    """Exact (optionally trimmed) SSE [G] of G poses against the full
+    target, in one NN pass — used to re-anchor incumbents produced by
+    proxy-target search ICPs on the true objective (models/goicp.py)."""
     _unported(trim_keep, point_weights, pcs)
     if target_axis is not None:
         raise NotImplementedError(
             "target-sharded SSE is ROADMAP Queue 1 item 16 (multi-GPU)")
     g, ns = R.shape[0], pcs.shape[0]
     cur = torch.einsum("grc,nc->gnr", R, pcs) + t[:, None, :]
-    return torch.sum(nn_ops.nearest_sqdist(cur, pct).reshape(g, ns), dim=-1)
+    return trimmed_sum(nn_ops.nearest_sqdist(cur, pct).reshape(g, ns),
+                       trim_keep)
 
 
 def icp_register(pct: torch.Tensor, pcs: torch.Tensor, R0=None, t0=None,

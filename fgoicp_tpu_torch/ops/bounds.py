@@ -12,18 +12,25 @@ d an estimate of the distance from q to the target:
 
 Backends: `proxy` (exact NN against a farthest-point coreset of the
 target, d_lb = d - eps_cover) and `exact` (the proxy backend over
-the full target, eps = 0).  The LUT backend and trimming are not ported
-(ROADMAP Queue 1 items 14 and 10).  The pooled frontier evaluates these
-bounds with the fused lane kernel (ops/cuda_bounds.py).
+the full target, eps = 0).  The LUT backend is not ported (ROADMAP Queue 1
+item 14).  The pooled frontier evaluates these bounds with the fused lane
+kernels and the grouped scheduler with the fused grid kernel
+(ops/cuda_bounds.py, through `evaluate_bounds`).
+
+Trimming: with trim_keep = K < ns, per-node sums keep only the K smallest
+per-point terms (`reduce_point_terms`); over weighted source clusters the
+member-level trim is `reduce_clustered_trimmed`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from . import coreset as coreset_ops
+from . import cuda_bounds
 from . import geometry as geo
 from . import nn as nn_ops
 
@@ -92,3 +99,150 @@ def distance_estimates(backend: ProxyBackend, queries: torch.Tensor):
     d2 = nn_ops.nearest_sqdist(queries, backend.coreset.points)
     d = torch.sqrt(torch.clamp(d2, min=0.0)).reshape(shape)
     return d, d - backend.coreset.eps
+
+
+def _no_points_axis(points_axis):
+    if points_axis is not None:
+        raise NotImplementedError(
+            "point-sharded bounds (points_axis) are ROADMAP Queue 1 item 16 "
+            "(multi-GPU)")
+
+
+def reduce_point_terms(pt: torch.Tensor, point_weights, trim_keep,
+                       points_axis=None, trim_ns: Optional[int] = None,
+                       drop_mode: str = "exact") -> torch.Tensor:
+    """Reduce per-point bound terms [..., ns] to per-node sums.
+
+    point_weights [ns] multiply the terms (0/1 padding masks with trimming).
+    With trim_keep, the n_drop = trim_ns - trim_keep largest weighted terms
+    are left out (trim_ns defaults to ns): exactly (`drop_mode="exact"`,
+    top-k) or by the bisection bracket (`cuda_bounds.dropsum_bracket`),
+    "over" for lower-bound terms (the lb stays sound) and "under" for
+    upper-bound terms (the ub stays valid).  Weight-0 points are masked
+    with -BIG so they are never dropped."""
+    _no_points_axis(points_axis)
+    if point_weights is not None:
+        w = torch.broadcast_to(point_weights.to(torch.float32),
+                               pt.shape[-1:])
+        pt = pt * w
+        masked = torch.where(w > 0, pt, -nn_ops.BIG)
+    else:
+        masked = pt
+    total = torch.sum(pt, dim=-1)
+    if trim_keep is None:
+        return total
+    n_drop = (trim_ns if trim_ns is not None else pt.shape[-1]) - trim_keep
+    if n_drop <= 0:
+        return total
+    if drop_mode != "exact":
+        drop = cuda_bounds.dropsum_bracket(masked, n_drop, drop_mode)
+        return total - torch.clamp(drop, min=0.0)
+    top = torch.topk(masked, min(n_drop, pt.shape[-1]), dim=-1).values
+    return total - torch.sum(torch.clamp(top, min=0.0), dim=-1)
+
+
+def _weighted_drop_sum(values: torch.Tensor, weights: torch.Tensor,
+                       n_drop: int) -> torch.Tensor:
+    """Greedy maximum total of n_drop member terms, where cluster j holds
+    weights[j] members each contributing values[j] (values [..., K],
+    weights [K] or [..., K]): clusters by value descending, members taken
+    until the budget is spent.  The sort is stable, as `jnp.argsort`."""
+    w = torch.broadcast_to(weights.to(torch.float32), values.shape)
+    order = torch.argsort(-values, dim=-1, stable=True)
+    v = torch.take_along_dim(values, order, dim=-1)
+    w = torch.take_along_dim(w, order, dim=-1)
+    cum = torch.cumsum(w, dim=-1)
+    take = torch.clamp(float(n_drop) - (cum - w), min=torch.zeros_like(w),
+                       max=w)
+    return torch.sum(v * take, dim=-1)
+
+
+def reduce_clustered_trimmed(lb_pt: torch.Tensor, ub_pt: torch.Tensor,
+                             point_weights: torch.Tensor, trim_keep: int,
+                             trim_ns: int, points_axis=None):
+    """Trimmed bounds over weighted source clusters: with member-level
+    brackets lb_j <= true_j <= ub_j,
+        lb = max(sum w*lb - greedy top-n_drop of member UB terms, 0)
+        ub = sum w*ub - greedy top-n_drop of member LB terms
+    are valid trimmed bounds (fgoicp_tpu/ops/bounds.py's derivation).
+    Returns (lb, ub)."""
+    _no_points_axis(points_axis)
+    w = point_weights.to(torch.float32)
+    total_lb = torch.sum(lb_pt * w, dim=-1)
+    total_ub = torch.sum(ub_pt * w, dim=-1)
+    n_drop = trim_ns - trim_keep
+    if n_drop <= 0:
+        return total_lb, total_ub
+    lb = torch.clamp(total_lb - _weighted_drop_sum(ub_pt, w, n_drop),
+                     min=0.0)
+    ub = total_ub - _weighted_drop_sum(lb_pt, w, n_drop)
+    return lb, ub
+
+
+def point_terms(backend: ProxyBackend, q: torch.Tensor, gam_ub, gam_lb,
+                gam_t):
+    """Unweighted per-point terms (lb_pt, ub_pt) for queries q [..., ns, 3]
+    with radii broadcasting against [..., ns] (gam_t against [...])."""
+    d_ub, d_lb = distance_estimates(backend, q)
+    ub_pt = torch.square(torch.clamp(d_ub - gam_ub, min=0.0))
+    lb_pt = torch.square(torch.clamp(d_lb - gam_lb - gam_t[..., None],
+                                     min=0.0))
+    return lb_pt, ub_pt
+
+
+def evaluate_bounds(backend: ProxyBackend, pcs: torch.Tensor,
+                    R: torch.Tensor, rot_spans: torch.Tensor,
+                    fix_rot: torch.Tensor, t_centers: torch.Tensor,
+                    t_spans: torch.Tensor, node_mask=None,
+                    ref_compat_gamma: bool = False,
+                    trim_keep: Optional[int] = None, points_axis=None,
+                    point_weights=None, point_deltas=None,
+                    trim_ns: Optional[int] = None):
+    """lb, ub [G, B] for a grid of (rotation group, translation node)s.
+
+    pcs [ns, 3]; R [G, 3, 3]; rot_spans [G]; fix_rot [G] bool (gamma_r off);
+    t_centers [G, B, 3]; t_spans [G, B]; node_mask [G, B] bool (False nodes
+    return BIG).  point_weights [ns] multiply both terms (a 0/1 mask with
+    trimming); point_deltas [ns] are source-cluster radii (with trim_keep
+    they select the member-level clustered trim, which needs point_weights
+    and trim_ns).  Untrimmed nodes go through the fused grid kernel
+    (`cuda_bounds.fused_bounds`); trimmed ones through the nearest-proxy
+    kernel and the torch reductions, as the JAX package does."""
+    _no_points_axis(points_axis)
+    clustered_trim = trim_keep is not None and point_deltas is not None
+    if clustered_trim and (point_weights is None or trim_ns is None):
+        raise ValueError(
+            "clustered trimming needs point_weights (member counts) and "
+            "trim_ns (global member count)")
+    if not isinstance(backend, ProxyBackend):
+        raise TypeError(f"Unknown backend type: {type(backend)}")
+    norms = torch.linalg.vector_norm(pcs, dim=-1)
+    gam_ub, gam_lb = gamma_arrays(norms, rot_spans, fix_rot,
+                                  ref_compat=ref_compat_gamma,
+                                  point_deltas=point_deltas)
+    gam_t = geo.translation_uncertainty_radius(t_spans)         # [G, B]
+    base = torch.einsum("grc,nc->gnr", R, pcs)                  # [G, ns, 3]
+    if trim_keep is None:
+        lb, ub = cuda_bounds.fused_bounds(
+            base.contiguous(), t_centers.contiguous(),
+            backend.coreset.points.contiguous(), gam_ub.contiguous(),
+            gam_t.contiguous(), float(backend.coreset.eps),
+            point_weights=(None if point_weights is None
+                           else point_weights.contiguous()),
+            gam_lb=gam_lb.contiguous())
+    else:
+        q = base[:, None, :, :] + t_centers[:, :, None, :]      # [G, B, ns, 3]
+        lb_pt, ub_pt = point_terms(backend, q, gam_ub[:, None, :],
+                                   gam_lb[:, None, :], gam_t)
+        if clustered_trim:
+            lb, ub = reduce_clustered_trimmed(lb_pt, ub_pt, point_weights,
+                                              trim_keep, trim_ns)
+        else:
+            ub = reduce_point_terms(ub_pt, point_weights, trim_keep,
+                                    trim_ns=trim_ns, drop_mode="under")
+            lb = reduce_point_terms(lb_pt, point_weights, trim_keep,
+                                    trim_ns=trim_ns, drop_mode="over")
+    if node_mask is not None:
+        lb = torch.where(node_mask, lb, nn_ops.BIG)
+        ub = torch.where(node_mask, ub, nn_ops.BIG)
+    return lb, ub

@@ -1,16 +1,27 @@
 """Pooled inner R^3 BnB: one global frontier shared by all groups.
 
 Counterpart of `fgoicp_tpu/ops/pool_frontier.py::bnb_r3_pooled` with
-`pool_update="sort"`, untrimmed, on one device.  One pool of
-(group id, center, span, lb) nodes sorted by lower bound:
+`pool_update="sort"`, on one device.  One pool of (group id, center, span,
+lb) nodes sorted by lower bound:
 
   each step:
     pop the globally best L nodes (any group) ->
-    evaluate all L lanes (ops/cuda_bounds.fused_bounds_lanes: the CUDA
-    kernel on the card, its plain torch version on the CPU) ->
+    evaluate all L lanes (`_eval_lanes`) ->
     per-group incumbent updates via one-hot reductions ->
     split survivors into octree children, filter dominated nodes,
     stable-sort, truncate to capacity.
+
+Lane evaluation, on the card by CUDA kernels and on the CPU by their plain
+torch versions (ops/cuda_bounds.py):
+  - untrimmed: `fused_bounds_lanes`;
+  - trimmed plain sources (n_drop = trim_ns - trim_keep > 0):
+    `fused_bounds_lanes_trimmed`, which keeps the lanes' [L, ns] term
+    tensors out of device memory.  The JAX package leaves this kernel
+    opt-in on the TPU on the strength of a TPU measurement; on the card it
+    is the path (its times against the unfused path are in PERF.md);
+  - trimmed source clusters (point_deltas given): the nearest-proxy kernel
+    and the member-level clustered trim of ops/bounds.py, as the JAX
+    package's XLA lane path computes them.
 
 The JAX `lax.while_loop` is a Python loop whose condition is read on the
 host once per step.  The sort is `torch.argsort(stable=True)`: the 8
@@ -70,7 +81,7 @@ def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
                   trim_keep: Optional[int] = None,
                   point_weights=None, point_deltas=None,
                   err_share_from=None, pool_update: str = "sort",
-                  **unported) -> PoolState:
+                  trim_ns: Optional[int] = None, **unported) -> PoolState:
     """Pool-scheduled inner BnB for G rotation groups.
 
     pcs [ns, 3] (search source points or cluster representatives),
@@ -79,15 +90,14 @@ def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
     [ns]: source-cluster multiplicities and radii.  err_share_from [G]
     int: group whose incumbent validly upper-bounds this group's objective
     (-1 = none) — the engine points each gamma-relaxed lb-pass group at its
-    fixed-rotation twin.  Returns the final PoolState.
+    fixed-rotation twin.  trim_keep / trim_ns: keep the trim_keep smallest
+    of trim_ns member terms (trim_ns defaults to ns; with point_deltas it
+    is the global member count).  Returns the final PoolState.
     """
     if unported:
         raise NotImplementedError(
             f"bnb_r3_pooled options {sorted(unported)}: point sharding and "
             f"lockstep axes are ROADMAP Queue 1 item 16 (multi-GPU)")
-    if trim_keep is not None:
-        raise NotImplementedError(
-            "trimmed pooled bounds are ROADMAP Queue 1 item 10 (trimming)")
     if pool_update == "merge":
         raise NotImplementedError(
             "pool_update='merge' is not ported (ROADMAP Queue 1 item 7 "
@@ -105,6 +115,15 @@ def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
             f"dropped and their searches would never terminate")
     if group_active is None:
         group_active = torch.ones(g, dtype=torch.bool, device=dev)
+    clustered_trim = trim_keep is not None and point_deltas is not None
+    if clustered_trim and (point_weights is None or trim_ns is None):
+        raise ValueError(
+            "clustered trimming needs point_weights (member counts) and "
+            "trim_ns (global member count)")
+    n_drop = 0
+    if trim_keep is not None:
+        n_drop = (trim_ns if trim_ns is not None else pcs.shape[0]) \
+            - trim_keep
 
     base = torch.einsum("grc,nc->gnr", R, pcs).contiguous()     # [G, ns, 3]
     norms = torch.linalg.vector_norm(pcs, dim=-1)
@@ -151,10 +170,21 @@ def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
         lane_valid = ((pop_lb < INVALID) & (pop_lb < s.best_err[pop_gid])
                       & s.active[pop_gid])
         gam_t_l = geo.translation_uncertainty_radius(pop_s)
-        lb_e, ub_e = cuda_bounds.fused_bounds_lanes(
-            base, pop_gid.to(torch.int32), pop_c.contiguous(), proxies,
-            gam_ub, gam_t_l.contiguous(), slack,
-            point_weights=point_weights, gam_lb=gam_lb)
+        gids32, t_l = pop_gid.to(torch.int32), pop_c.contiguous()
+        if clustered_trim:
+            lb_e, ub_e = bounds_ops.reduce_clustered_trimmed(
+                *bounds_ops.point_terms(
+                    backend, base[pop_gid] + pop_c[:, None, :],
+                    gam_ub[pop_gid], gam_lb[pop_gid], gam_t_l),
+                point_weights, trim_keep, trim_ns)
+        elif n_drop > 0:
+            lb_e, ub_e = cuda_bounds.fused_bounds_lanes_trimmed(
+                base, gids32, t_l, proxies, gam_ub, gam_t_l.contiguous(),
+                slack, n_drop, point_weights=point_weights, gam_lb=gam_lb)
+        else:
+            lb_e, ub_e = cuda_bounds.fused_bounds_lanes(
+                base, gids32, t_l, proxies, gam_ub, gam_t_l.contiguous(),
+                slack, point_weights=point_weights, gam_lb=gam_lb)
         lb_e = torch.where(lane_valid, lb_e, BIG)
         ub_e = torch.where(lane_valid, ub_e, BIG)
 

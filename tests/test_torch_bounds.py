@@ -1,7 +1,8 @@
-"""Port parity: the plain torch `fused_bounds_lanes`
-(fgoicp_tpu_torch/ops/cuda_bounds.py) against the JAX package's Pallas
-kernel (interpret mode) and its XLA lane path, with source-cluster weights
-and gam_lb != gam_ub; `gamma_arrays` parity; and the bound property
+"""Port parity: the plain torch versions of the fused bound kernels
+(fgoicp_tpu_torch/ops/cuda_bounds.py: `fused_bounds_lanes`,
+`fused_bounds_lanes_trimmed`, `fused_bounds`) against the JAX package's
+Pallas kernels (interpret mode) and its XLA paths, with source-cluster
+weights and gam_lb != gam_ub; `gamma_arrays` parity; and the bound property
 lb <= exact SSE <= ub on random nodes.
 
 Tolerance rtol 2e-4 / atol 2e-5 (tests/test_pallas_bounds.py): the sums
@@ -104,6 +105,176 @@ def test_fused_lanes_plain_matches_pallas_and_xla(weighted):
         np.testing.assert_allclose(lb_t.numpy(), np.asarray(ref_lb),
                                    rtol=2e-4, atol=2e-5)
     assert bool(torch.all(lb_t <= ub_t + 1e-5))
+
+
+def _trimmed_lane_case(seed, g, lanes, ns, p, weights=None):
+    """The inputs of tests/test_pallas_bounds.py's trimmed-kernel tests:
+    plain sources (gam_lb == gam_ub), random lanes."""
+    rng = np.random.default_rng(seed)
+    pcs = jnp.asarray(rng.uniform(-0.7, 0.7, size=(ns, 3)), jnp.float32)
+    proxies = jnp.asarray(rng.uniform(-0.9, 0.9, size=(p, 3)), jnp.float32)
+    xyz = jnp.asarray(rng.uniform(-0.4, 0.4, size=(g, 3)), jnp.float32)
+    R = jgeo.quat_cube_to_matrix(xyz)
+    rot_spans = jnp.asarray(rng.uniform(0.05, 0.4, size=(g,)), jnp.float32)
+    fix = jnp.asarray([True, False, True, False][:g])
+    base = jnp.einsum("grc,nc->gnr", R, pcs,
+                      precision=jax.lax.Precision.HIGHEST)
+    gam_ub, gam_lb = jbounds.gamma_arrays(jnp.linalg.norm(pcs, axis=-1),
+                                          rot_spans, fix)
+    gids = jnp.asarray(rng.integers(0, g, size=(lanes,)), jnp.int32)
+    t_lanes = jnp.asarray(rng.uniform(-0.4, 0.4, size=(lanes, 3)),
+                          jnp.float32)
+    gam_t = jgeo.translation_uncertainty_radius(
+        jnp.asarray(rng.uniform(0.05, 0.3, size=(lanes,)), jnp.float32))
+    return base, gids, t_lanes, proxies, gam_ub, gam_lb, gam_t
+
+
+@pytest.mark.parametrize("keep_of", ["ns-1", "0.7ns", "ns/3"])
+def test_fused_lanes_trimmed_plain_matches_pallas_and_xla(keep_of):
+    """The trim_keep values of test_fused_lanes_trimmed_matches_xla_bracket:
+    the plain version against the Pallas kernel and the XLA lane path."""
+    ns = 700
+    trim_keep = {"ns-1": ns - 1, "0.7ns": int(0.7 * ns), "ns/3": ns // 3}[
+        keep_of]
+    base, gids, t_l, prox, gam_ub, gam_lb, gam_t = _trimmed_lane_case(
+        7, 4, 16, ns, 300)
+    slack = jnp.float32(0.03)
+    lb_k, ub_k = pallas_bounds.fused_bounds_lanes_trimmed(
+        base, gids, t_l, prox, gam_ub, gam_t, slack, n_drop=ns - trim_keep,
+        gam_lb=gam_lb, interpret=True)
+    backend = jbounds.ProxyBackend(coreset=jbounds.coreset_ops.ProxyCoreset(
+        points=prox, eps=slack))
+    lb_x, ub_x = _eval_lanes_xla(backend, base, gids, t_l, gam_ub, gam_lb,
+                                 gam_t, None, trim_keep)
+    before = cuda_bounds.fused_bounds_lanes_trimmed.launches
+    lb_t, ub_t = cuda_bounds.fused_bounds_lanes_trimmed(
+        T(base), T(gids), T(t_l), T(prox), T(gam_ub), T(gam_t), float(slack),
+        ns - trim_keep, gam_lb=T(gam_lb))
+    assert cuda_bounds.fused_bounds_lanes_trimmed.launches == before
+    for ref_lb, ref_ub in ((lb_k, ub_k), (lb_x, ub_x)):
+        np.testing.assert_allclose(ub_t.numpy(), np.asarray(ref_ub),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(lb_t.numpy(), np.asarray(ref_lb),
+                                   rtol=2e-4, atol=2e-5)
+    assert bool(torch.all(lb_t <= ub_t + 1e-5))
+    # Trimming removes something from every lane with positive terms.
+    lb_u, ub_u = cuda_bounds.fused_bounds_lanes(
+        T(base), T(gids), T(t_l), T(prox), T(gam_ub), T(gam_t), float(slack),
+        gam_lb=T(gam_lb))
+    assert bool(torch.all(ub_t <= ub_u)) and bool(torch.all(lb_t <= lb_u))
+
+
+def test_fused_lanes_trimmed_weight_mask():
+    """0/1 padding weights (test_fused_lanes_trimmed_weight_mask's case):
+    the plain version equals the XLA path over the real points
+    (trim_ns = the real count) and the Pallas kernel."""
+    ns_real, pad = 500, 140
+    ns = ns_real + pad
+    base, gids, t_l, prox, gam_ub, gam_lb, gam_t = _trimmed_lane_case(
+        8, 3, 8, ns, 256)
+    w = np.ones(ns, np.float32)
+    w[ns_real:] = 0.0
+    slack, trim_keep = jnp.float32(0.02), 350
+    lb_k, ub_k = pallas_bounds.fused_bounds_lanes_trimmed(
+        base, gids, t_l, prox, gam_ub, gam_t, slack,
+        n_drop=ns_real - trim_keep, point_weights=jnp.asarray(w),
+        gam_lb=gam_lb, interpret=True)
+    backend = jbounds.ProxyBackend(coreset=jbounds.coreset_ops.ProxyCoreset(
+        points=prox, eps=slack))
+    lb_x, ub_x = _eval_lanes_xla(backend, base, gids, t_l, gam_ub, gam_lb,
+                                 gam_t, jnp.asarray(w), trim_keep,
+                                 trim_ns=ns_real)
+    lb_t, ub_t = cuda_bounds.fused_bounds_lanes_trimmed(
+        T(base), T(gids), T(t_l), T(prox), T(gam_ub), T(gam_t), float(slack),
+        ns_real - trim_keep, point_weights=T(w), gam_lb=T(gam_lb))
+    for ref_lb, ref_ub in ((lb_k, ub_k), (lb_x, ub_x)):
+        np.testing.assert_allclose(ub_t.numpy(), np.asarray(ref_ub),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(lb_t.numpy(), np.asarray(ref_lb),
+                                   rtol=2e-4, atol=2e-5)
+
+
+def _grid_case(seed=0, g=3, b=5, ns=700, p=300):
+    """tests/test_pallas_bounds.py::_case."""
+    rng = np.random.default_rng(seed)
+    pcs = jnp.asarray(rng.uniform(-0.7, 0.7, size=(ns, 3)), jnp.float32)
+    proxies = jnp.asarray(rng.uniform(-0.9, 0.9, size=(p, 3)), jnp.float32)
+    xyz = jnp.asarray(rng.uniform(-0.4, 0.4, size=(g, 3)), jnp.float32)
+    R = jgeo.quat_cube_to_matrix(xyz)
+    rot_spans = jnp.asarray(rng.uniform(0.05, 0.4, size=(g,)), jnp.float32)
+    fix = jnp.asarray([True, False, True][:g])
+    tc = jnp.asarray(rng.uniform(-0.5, 0.5, size=(g, b, 3)), jnp.float32)
+    ts = jnp.asarray(rng.uniform(0.05, 0.3, size=(g, b)), jnp.float32)
+    return pcs, proxies, R, rot_spans, fix, tc, ts
+
+
+@pytest.mark.parametrize("case", ["plain", "padding_mask", "clusters"])
+def test_fused_grid_plain_matches_pallas_and_xla(case):
+    """`fused_bounds` (the grid form) on the shapes of
+    tests/test_pallas_bounds.py::_case: plain points, a 0/1 padding mask
+    (test_fused_point_weights_mask_padding) and cluster weights with
+    gam_lb != gam_ub."""
+    ns = 600 if case == "padding_mask" else 700
+    pcs, prox, R, rot_spans, fix, tc, ts = _grid_case(
+        seed=1 if case == "padding_mask" else 0, ns=ns)
+    rng = np.random.default_rng(3)
+    w = deltas = None
+    if case == "padding_mask":
+        w = np.ones(ns, np.float32)
+        w[500:] = 0.0
+    elif case == "clusters":
+        w = rng.integers(1, 6, size=(ns,)).astype(np.float32)
+        deltas = rng.uniform(0.0, 0.03, size=(ns,)).astype(np.float32)
+    slack = jnp.float32(0.01)
+    gam_ub, gam_lb = jbounds.gamma_arrays(
+        jnp.linalg.norm(pcs, axis=-1), rot_spans, fix,
+        point_deltas=None if deltas is None else jnp.asarray(deltas))
+    gam_t = jgeo.translation_uncertainty_radius(ts)
+    base = jnp.einsum("grc,nc->gnr", R, pcs,
+                      precision=jax.lax.Precision.HIGHEST)
+    jw = None if w is None else jnp.asarray(w)
+    lb_k, ub_k = pallas_bounds.fused_bounds(
+        base, tc, prox, gam_ub, gam_t, slack, point_weights=jw,
+        gam_lb=gam_lb, interpret=True)
+    backend = jbounds.ProxyBackend(coreset=jbounds.coreset_ops.ProxyCoreset(
+        points=prox, eps=slack))
+    lb_x, ub_x = jbounds.evaluate_bounds(
+        backend, pcs, R, rot_spans, fix, tc, ts, point_weights=jw,
+        point_deltas=None if deltas is None else jnp.asarray(deltas))
+    before = cuda_bounds.fused_bounds.launches
+    lb_t, ub_t = cuda_bounds.fused_bounds(
+        T(base), T(tc), T(prox), T(gam_ub), T(gam_t), float(slack),
+        point_weights=None if w is None else T(w), gam_lb=T(gam_lb))
+    assert cuda_bounds.fused_bounds.launches == before
+    assert lb_t.shape == ub_t.shape == (3, 5)
+    for ref_lb, ref_ub in ((lb_k, ub_k), (lb_x, ub_x)):
+        np.testing.assert_allclose(ub_t.numpy(), np.asarray(ref_ub),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(lb_t.numpy(), np.asarray(ref_lb),
+                                   rtol=2e-4, atol=2e-5)
+    assert bool(torch.all(lb_t <= ub_t + 1e-5))
+
+
+def test_grid_and_trimmed_wrappers_check_shapes():
+    base, gam = torch.zeros(2, 20, 3), torch.zeros(2, 20)
+    prox = torch.ones(10, 3)
+    lb, ub = cuda_bounds.fused_bounds(base, torch.zeros(2, 4, 3), prox, gam,
+                                      torch.zeros(2, 4), 0.0)
+    assert lb.shape == ub.shape == (2, 4)
+    with pytest.raises(ValueError, match="gam_t"):
+        cuda_bounds.fused_bounds(base, torch.zeros(2, 4, 3), prox, gam,
+                                 torch.zeros(4), 0.0)
+    with pytest.raises(ValueError, match="t_centers"):
+        cuda_bounds.fused_bounds(base, torch.zeros(8, 3), prox, gam,
+                                 torch.zeros(2, 4), 0.0)
+    gids = torch.zeros(4, dtype=torch.int32)
+    lb, ub = cuda_bounds.fused_bounds_lanes_trimmed(
+        base, gids, torch.zeros(4, 3), prox, gam, torch.zeros(4), 0.0, 5)
+    assert lb.shape == ub.shape == (4,)
+    with pytest.raises(ValueError, match="proxies"):
+        cuda_bounds.fused_bounds_lanes_trimmed(
+            base, gids, torch.zeros(4, 3), torch.zeros(0, 3), gam,
+            torch.zeros(4), 0.0, 5)
 
 
 def test_fused_lanes_checks_shapes():

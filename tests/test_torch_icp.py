@@ -69,8 +69,64 @@ def test_icp_register_recovers_small_motion():
     np.testing.assert_allclose(t.numpy(), t_true, atol=1e-4)
 
 
+def _with_outliers(seed=4, n=200, n_out=40):
+    """tests/test_goicp.py::test_trimmed_registration_with_outliers' pair:
+    20 % of the source points are garbage."""
+    pct, pcs, R_true, t_true = _make_problem(seed=seed, angle=1.8, n=n)
+    rng = np.random.default_rng(5)
+    outliers = rng.uniform(-3, 3, size=(n_out, 3)).astype(np.float32)
+    return pct, np.concatenate([pcs, outliers]), R_true, t_true
+
+
+@pytest.mark.parametrize("conv", [0.05, 0.001])
+def test_trimmed_icp_batched_matches_jax(conv):
+    pct, pcs, R_true, t_true = _with_outliers()
+    keep = int(round(len(pcs) * 0.75))
+    R0, t0, active = _lanes()
+    sse_j, R_j, t_j = jicp.icp_batched(pct, pcs, R0, t0, active=active,
+                                       max_iter=100,
+                                       convergence_threshold=conv,
+                                       trim_keep=keep)
+    sse_t, R_t, t_t = ticp.icp_batched(
+        torch.from_numpy(pct), torch.from_numpy(pcs), torch.from_numpy(R0),
+        torch.from_numpy(t0), active=torch.from_numpy(active), max_iter=100,
+        convergence_threshold=conv, trim_keep=keep)
+    np.testing.assert_allclose(sse_t.numpy(), np.asarray(sse_j),
+                               rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(R_t.numpy(), np.asarray(R_j), atol=1e-4)
+    np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), atol=1e-4)
+    # Some lane trims the outliers away and lands on the true pose.
+    best = int(torch.argmin(sse_t))
+    np.testing.assert_allclose(R_t[best].numpy(), R_true, atol=1e-3)
+
+
+def test_trimmed_exact_sse_batched_and_masks_match_jax():
+    pct, pcs, R_true, t_true = _with_outliers()
+    R, _, _ = _lanes()
+    R, t = R[:4], np.tile(t_true, (4, 1))
+    R[0] = R_true
+    for keep in (len(pcs), 200, 150):
+        s_j = jicp.exact_sse_batched(pct, pcs, R, t, trim_keep=keep)
+        s_t = ticp.exact_sse_batched(
+            torch.from_numpy(pct), torch.from_numpy(pcs), torch.from_numpy(R),
+            torch.from_numpy(t), trim_keep=keep)
+        np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-5,
+                                   atol=1e-9)
+    assert float(s_t[0]) < 1e-8  # the inliers fit the true pose exactly
+    # Ties at the threshold keep every tied point, as the JAX mask does.
+    d2 = torch.tensor([[0.3, 0.1, 0.2, 0.2, 0.5]])
+    np.testing.assert_array_equal(ticp.trim_mask(d2, 3).numpy(),
+                                  [[0, 1, 1, 1, 0]])
+    assert ticp.trim_mask(d2, 5) is None
+    np.testing.assert_allclose(float(ticp.trimmed_sum(d2, 2)[0]), 0.3)
+    with pytest.raises(ValueError, match="point_weights"):
+        ticp.exact_sse_batched(torch.from_numpy(pct), torch.from_numpy(pcs),
+                               torch.from_numpy(R), torch.from_numpy(t),
+                               trim_keep=10,
+                               point_weights=torch.ones(len(pcs)))
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(trim_keep=10), "item 10"),
     (dict(point_weights=torch.ones(160)), "item 13"),
     (dict(target_axis="points"), "item 16"),
 ])

@@ -108,5 +108,14 @@ def test_exact_sse_matches_direct_sum():
     ref = (q[:, None] - pct.double()[None]).pow(2).sum(-1).min(dim=1).values.sum()
     np.testing.assert_allclose(float(tnn.exact_sse(pct, pcs, R, t)),
                                float(ref), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tnn.exact_sse(pct, pcs, R, t, trim_fraction=0.1)
+    # Trimmed: the keep = round(ns * 0.9) smallest residuals, as the JAX
+    # package sums them.
+    from fgoicp_tpu.ops import nn as jnn
+    want = jnn.exact_sse(pct.numpy(), pcs.numpy(), R.numpy(), t.numpy(),
+                         trim_fraction=0.1)
+    got = tnn.exact_sse(pct, pcs, R, t, trim_fraction=0.1)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    d2 = (q[:, None] - pct.double()[None]).pow(2).sum(-1).min(dim=1).values
+    np.testing.assert_allclose(float(got),
+                               float(torch.sort(d2).values[:81].sum()),
+                               rtol=1e-5)

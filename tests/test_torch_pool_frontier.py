@@ -7,6 +7,8 @@ lb-pass twin groups sharing incumbents as the engine runs them.
 Compared per group: best_ub, lb_raw = min(best_ub, best_err) and
 dropped_lb (rtol 1e-4: the lane sums round in another order), and the
 search counters, which must be equal.  A forced-overflow case checks the dropped_lb clamp.
+Trimmed searches run plain source points (the trimmed lane kernel's plain
+version against the JAX XLA lane path) and clusters (member-level trim).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from fgoicp_tpu.ops import geometry as jgeo
 from fgoicp_tpu.ops import pool_frontier as jpool
 from fgoicp_tpu_torch.ops import bounds as tbounds
 from fgoicp_tpu_torch.ops import coreset as tcoreset
+from fgoicp_tpu_torch.ops import cuda_bounds
 from fgoicp_tpu_torch.ops import pool_frontier as tpool
 
 INVALID = 1e30
@@ -131,9 +134,74 @@ def test_pool_max_steps_exit_folds_frontier_min():
                                np.asarray(st_j.dropped_lb), rtol=1e-4)
 
 
+def _run_trimmed(seed, clustered, ns=260, keep_share=0.75, **kw):
+    """Trimmed pooled searches in both packages: plain source points (the
+    trimmed lane kernel's plain version; the JAX XLA lane path) or the
+    JAX-built source clusters with the member-level clustered trim."""
+    backend, clusters, R2, spans2, fix2, share = _problem(seed=seed, ns=ns)
+    rng = np.random.default_rng(seed)
+    pcs = rng.uniform(-0.6, 0.6, size=(ns, 3)).astype(np.float32)
+    trim_keep = int(round(ns * keep_share))
+    if clustered:
+        src = np.asarray(clusters.reps)
+        extra_j = dict(point_weights=clusters.weights,
+                       point_deltas=clusters.deltas, trim_ns=ns)
+    else:
+        src, extra_j = pcs, {}
+    st_j = jpool.bnb_r3_pooled(
+        backend, jnp.asarray(src), jnp.asarray(R2), jnp.asarray(spans2),
+        jnp.asarray(fix2), jnp.float32(1e9), jnp.float32(1e-4),
+        err_share_from=jnp.asarray(share), trim_keep=trim_keep, **extra_j,
+        **kw)
+    cs, cl = tcoreset.state_from_numpy(
+        {"points": backend.coreset.points, "eps": backend.coreset.eps,
+         "reps": clusters.reps, "weights": clusters.weights,
+         "deltas": clusters.deltas}, "cpu")
+    extra_t = (dict(point_weights=cl.weights, point_deltas=cl.deltas,
+                    trim_ns=ns) if clustered else {})
+    st_t = tpool.bnb_r3_pooled(
+        tbounds.ProxyBackend(coreset=cs), torch.from_numpy(src.copy()),
+        torch.from_numpy(R2), torch.from_numpy(spans2),
+        torch.from_numpy(fix2), float(np.float32(1e9)),
+        float(np.float32(1e-4)), err_share_from=torch.from_numpy(share),
+        trim_keep=trim_keep, **extra_t, **kw)
+    return st_j, st_t
+
+
+@pytest.mark.parametrize("seed,clustered", [(0, False), (1, False),
+                                            (0, True), (3, True)])
+def test_trimmed_pooled_matches_jax(seed, clustered):
+    before = (cuda_bounds.fused_bounds_lanes.launches,
+              cuda_bounds.fused_bounds_lanes_trimmed.launches)
+    st_j, st_t = _run_trimmed(seed, clustered, min_span=0.2, lanes=32,
+                              capacity=4096, max_steps=2000)
+    # On the CPU the lanes run the kernels' plain versions.
+    assert (cuda_bounds.fused_bounds_lanes.launches,
+            cuda_bounds.fused_bounds_lanes_trimmed.launches) == before
+    for got, want in zip(_per_group(st_t, False), _per_group(st_j, True)):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    assert st_t.steps == int(st_j.steps)
+    np.testing.assert_array_equal(st_t.evaluated.numpy(),
+                                  np.asarray(st_j.evaluated))
+    assert int(st_t.dropped) == int(st_j.dropped) == 0
+    assert not st_t.active.any()
+
+
+def test_clustered_trim_needs_weights_and_member_count():
+    cs, cl = tcoreset.state_from_numpy(
+        {"points": np.zeros((4, 3), np.float32), "eps": np.float32(0.0),
+         "reps": np.ones((6, 3), np.float32),
+         "weights": np.ones(6, np.float32),
+         "deltas": np.zeros(6, np.float32)}, "cpu")
+    with pytest.raises(ValueError, match="clustered trimming"):
+        tpool.bnb_r3_pooled(
+            tbounds.ProxyBackend(coreset=cs), cl.reps, torch.eye(3)[None],
+            torch.ones(1), torch.ones(1, dtype=torch.bool), 1e9, 1e-4,
+            trim_keep=3, point_weights=cl.weights, point_deltas=cl.deltas)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(pool_update="merge"), "merge"),
-    (dict(trim_keep=10), "item 10"),
     (dict(points_axis="points"), "item 16"),
 ])
 def test_pooled_unported_options_raise(kw, match):
