@@ -159,7 +159,8 @@ class EngineConfig:
     # registration.cu:39-43); False uses the Go-ICP paper's form (point
     # norm, half-angle clamped to pi/2).
     ref_compat_gamma: bool = False
-    # Distance field (LUT backend; not ported).
+    # Distance field of the LUT bound backend (GoICP(...,
+    # bound_backend="lut"); no TOML key selects that backend).
     lut_dtype: str = "bfloat16"     # float32 | bfloat16 | float16
     lut_builder: str = "auto"       # auto | brute | edt
     lut_lookup: str = "auto"        # auto | nearest | trilinear

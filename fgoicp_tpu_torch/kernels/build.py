@@ -60,6 +60,8 @@ _SIGNATURES = {
     #  G, ns, P, L, n_drop, scratch, lb_out, ub_out, stream)
     "fgoicp_bounds_lanes_trimmed": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
                                     _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # (g, res, lines, n, out, stream)
+    "fgoicp_minplus_1d": (_P, _F, _I, _I, _P, _P),
 }
 
 

@@ -27,13 +27,18 @@ round(ns * (1 - trim_fraction)) smallest residuals, in the bounds (trimmed
 lane kernel, or the member-level clustered trim when source clusters are
 set explicitly) and in every ICP and incumbent SSE.
 
+The LUT bound backend (`bound_backend="lut"`) builds a distance field over
+the normalized target at `lut_resolution` (ops/distance_field.py; the exact
+EDT runs the `minplus_1d` kernel on the card) and bounds nodes by field
+lookups; its search ICPs iterate on a proxy coreset built on the side.
+
 Within one outer batch, all children see the incumbent from the start of
 the step (the reference lets child k see child k-1's ICP improvement); this
 only weakens in-search pruning slightly.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the device outer loop, pool_update="merge", the LUT backend, meshes, the
-serving hand-offs, checkpoints and the search-state sanitizer.
+the device outer loop, pool_update="merge", meshes, the serving hand-offs,
+checkpoints and the search-state sanitizer.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from ..config import Config, EngineConfig
 from ..io import load_cloud
 from ..ops import bounds as bounds_ops
 from ..ops import coreset as coreset_ops
+from ..ops import distance_field as df_ops
 from ..ops import frontier as frontier_ops
 from ..ops import geometry as geo
 from ..ops import pool_frontier
@@ -60,6 +66,8 @@ from . import icp as icp_model
 
 BIG = 1e10  # reference M_INF (common.hpp:18)
 NO_CLOSED_LEAF = 1e29  # _closed_leaf_lb sentinel: no terminal leaf closed
+_LUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16}
 
 
 @dataclasses.dataclass
@@ -120,8 +128,6 @@ def _check_engine(e: EngineConfig, bound_backend: str, mesh,
         (e.pool_update == "merge",
          "pool_update='merge' is not ported (ROADMAP Queue 1 item 7 ports "
          "'sort' only)"),
-        (bound_backend == "lut",
-         "bound_backend='lut' is ROADMAP Queue 1 item 14"),
         (mesh is not None or e.mesh_cubes * e.mesh_points > 1,
          "meshes are ROADMAP Queue 1 item 16 (multi-GPU)"),
         (seed_pose_centered is not None or shared_proxy is not None,
@@ -136,7 +142,7 @@ def _check_engine(e: EngineConfig, bound_backend: str, mesh,
     for bad, msg in unported:
         if bad:
             raise NotImplementedError(msg)
-    if bound_backend not in ("proxy", "exact"):
+    if bound_backend not in ("proxy", "exact", "lut"):
         raise ValueError(f"Unknown bound backend: {bound_backend}")
 
 
@@ -183,17 +189,38 @@ class GoICP:
         self.sse_threshold = float(self.ns * mse_threshold)  # fgoicp.hpp:23
         self.trim_keep = (None if trim_fraction <= 0.0 else
                           max(1, int(round(self.ns * (1.0 - trim_fraction)))))
-        self.backend = bounds_ops.make_backend(
-            self.pct, kind=bound_backend, proxy_size=proxy_size, seed=e.seed)
+        if bound_backend == "lut":
+            field = df_ops.build(
+                self.pct, self.norm.target_bounds, lut_resolution,
+                builder="ref" if e.ref_compat_lut else e.lut_builder,
+                dtype=_LUT_DTYPES[e.lut_dtype], max_dim=e.lut_max_dim,
+                warn_dim=e.lut_warn_dim)
+            # conservative folds the field's error model into the distance
+            # estimates (lb <= true SSE for EDT-built and narrow fields);
+            # ref-compat mode drops the guarantee, as the reference's raw
+            # texture lookup (registration.cu:320-328).
+            self.backend = bounds_ops.make_backend(
+                self.pct, kind="lut", field=field,
+                conservative=e.lut_conservative, ref_compat=e.ref_compat_lut,
+                lookup=e.lut_lookup)
+        else:
+            self.backend = bounds_ops.make_backend(
+                self.pct, kind=bound_backend, proxy_size=proxy_size,
+                seed=e.seed)
 
         # Search-phase ICP target: the proxy coreset when it is smaller than
         # the full target (see _icp; the incumbent sse is always re-scored
-        # exactly).
+        # exactly).  A LUT engine builds one on the side (none in ref-compat
+        # mode): its bounds read the field, its search ICPs the coreset.
         self._icp_search_target = None
         if e.icp_search_on_proxy and proxy_size < self.nt:
-            cs_pts = self.backend.coreset.points
-            if cs_pts.shape[0] < self.nt:
-                self._icp_search_target = cs_pts
+            if isinstance(self.backend, bounds_ops.ProxyBackend):
+                cs_pts = self.backend.coreset.points
+                if cs_pts.shape[0] < self.nt:
+                    self._icp_search_target = cs_pts
+            elif not e.ref_compat_lut:
+                self._icp_search_target = coreset_ops.build(
+                    self.pct, size=proxy_size, seed=e.seed).points
 
         # Search-phase ICP source subsample (config.icp_search_subsample):
         # iteration-only, every incumbent is re-anchored by an exact

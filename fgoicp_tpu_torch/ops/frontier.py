@@ -4,9 +4,10 @@ Counterpart of `fgoicp_tpu/ops/frontier.py::bnb_r3_batched` on one device
 (`frontier_mode="grouped"`).  Each of the G searches (one per rotation
 candidate) keeps a fixed-capacity frontier of translation nodes sorted by
 lower bound; every step pops the best B nodes of every group, evaluates
-the [G, B] grid in one call (ops/bounds.py::evaluate_bounds: the fused grid
-kernel when untrimmed, the nearest-proxy kernel and the trimmed reductions
-otherwise), updates per-group incumbents, expands octree children and
+the [G, B] grid in one call (ops/bounds.py::evaluate_bounds: for a proxy
+backend the fused grid kernel when untrimmed, the nearest-proxy kernel and
+the trimmed reductions otherwise; for a LUT backend the field lookups and
+the torch reductions), updates per-group incumbents, expands octree children and
 merges them back.  The JAX `lax.while_loop` is a Python loop whose
 condition is read on the host once per step.
 
@@ -67,7 +68,7 @@ def _sort_frontier(centers, spans, lbs, capacity: int):
     return centers_s, spans_s, lbs_s, dropped, drop_min
 
 
-def bnb_r3_batched(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
+def bnb_r3_batched(backend: bounds_ops.Backend, pcs: torch.Tensor,
                    R: torch.Tensor, rot_spans: torch.Tensor,
                    fix_rot: torch.Tensor, best_sse: float,
                    sse_threshold: float, group_active=None,

@@ -11,8 +11,8 @@ lb) nodes sorted by lower bound:
     split survivors into octree children, filter dominated nodes,
     stable-sort, truncate to capacity.
 
-Lane evaluation, on the card by CUDA kernels and on the CPU by their plain
-torch versions (ops/cuda_bounds.py):
+Lane evaluation with a proxy backend, on the card by CUDA kernels and on
+the CPU by their plain torch versions (ops/cuda_bounds.py):
   - untrimmed: `fused_bounds_lanes`;
   - trimmed plain sources (n_drop = trim_ns - trim_keep > 0):
     `fused_bounds_lanes_trimmed`, which keeps the lanes' [L, ns] term
@@ -22,6 +22,10 @@ torch versions (ops/cuda_bounds.py):
   - trimmed source clusters (point_deltas given): the nearest-proxy kernel
     and the member-level clustered trim of ops/bounds.py, as the JAX
     package's XLA lane path computes them.
+With a LUT backend every lane goes through the field lookups
+(`bounds.point_terms`) and the torch reductions — untrimmed, trimmed with
+the bisection brackets, or the clustered trim — as the JAX package's XLA
+lane path (`_eval_lanes_xla`) does; no proxy lane kernel is launched.
 
 The JAX `lax.while_loop` is a Python loop whose condition is read on the
 host once per step.  The sort is `torch.argsort(stable=True)`: the 8
@@ -71,7 +75,7 @@ def _group_min(values: torch.Tensor, gids: torch.Tensor, g: int):
     return out.scatter_reduce_(0, gids, values, reduce="amin")
 
 
-def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
+def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
                   R: torch.Tensor, rot_spans: torch.Tensor,
                   fix_rot: torch.Tensor, best_sse: float,
                   sse_threshold: float, group_active=None,
@@ -104,9 +108,9 @@ def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
             "ports 'sort' only)")
     if pool_update != "sort":
         raise ValueError(f"Unknown pool_update mode: {pool_update!r}")
-    if not isinstance(backend, bounds_ops.ProxyBackend):
-        raise NotImplementedError(
-            "the LUT bound backend is ROADMAP Queue 1 item 14")
+    lut = isinstance(backend, bounds_ops.LutBackend)
+    if not lut and not isinstance(backend, bounds_ops.ProxyBackend):
+        raise TypeError(f"Unknown backend type: {type(backend)}")
     dev = pcs.device
     g = R.shape[0]
     if capacity < g:
@@ -133,9 +137,10 @@ def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
     gam_ub, gam_lb = gam_ub.contiguous(), gam_lb.contiguous()
     if point_weights is not None:
         point_weights = point_weights.contiguous()
-    proxies = backend.coreset.points.contiguous()
-    # One read-back per call; the kernel takes the slack as a float32.
-    slack = float(backend.coreset.eps)
+    if not lut:
+        proxies = backend.coreset.points.contiguous()
+        # One read-back per call; the kernel takes the slack as a float32.
+        slack = float(backend.coreset.eps)
     share = None
     if err_share_from is not None:
         share = torch.as_tensor(err_share_from, device=dev).long()
@@ -170,21 +175,30 @@ def bnb_r3_pooled(backend: bounds_ops.ProxyBackend, pcs: torch.Tensor,
         lane_valid = ((pop_lb < INVALID) & (pop_lb < s.best_err[pop_gid])
                       & s.active[pop_gid])
         gam_t_l = geo.translation_uncertainty_radius(pop_s)
-        gids32, t_l = pop_gid.to(torch.int32), pop_c.contiguous()
-        if clustered_trim:
-            lb_e, ub_e = bounds_ops.reduce_clustered_trimmed(
-                *bounds_ops.point_terms(
-                    backend, base[pop_gid] + pop_c[:, None, :],
-                    gam_ub[pop_gid], gam_lb[pop_gid], gam_t_l),
-                point_weights, trim_keep, trim_ns)
+        if lut or clustered_trim:
+            lb_pt, ub_pt = bounds_ops.point_terms(
+                backend, base[pop_gid] + pop_c[:, None, :],
+                gam_ub[pop_gid], gam_lb[pop_gid], gam_t_l)
+            if clustered_trim:
+                lb_e, ub_e = bounds_ops.reduce_clustered_trimmed(
+                    lb_pt, ub_pt, point_weights, trim_keep, trim_ns)
+            else:
+                lb_e = bounds_ops.reduce_point_terms(
+                    lb_pt, point_weights, trim_keep, trim_ns=trim_ns,
+                    drop_mode="over")
+                ub_e = bounds_ops.reduce_point_terms(
+                    ub_pt, point_weights, trim_keep, trim_ns=trim_ns,
+                    drop_mode="under")
         elif n_drop > 0:
             lb_e, ub_e = cuda_bounds.fused_bounds_lanes_trimmed(
-                base, gids32, t_l, proxies, gam_ub, gam_t_l.contiguous(),
-                slack, n_drop, point_weights=point_weights, gam_lb=gam_lb)
+                base, pop_gid.to(torch.int32), pop_c.contiguous(), proxies,
+                gam_ub, gam_t_l.contiguous(), slack, n_drop,
+                point_weights=point_weights, gam_lb=gam_lb)
         else:
             lb_e, ub_e = cuda_bounds.fused_bounds_lanes(
-                base, gids32, t_l, proxies, gam_ub, gam_t_l.contiguous(),
-                slack, point_weights=point_weights, gam_lb=gam_lb)
+                base, pop_gid.to(torch.int32), pop_c.contiguous(), proxies,
+                gam_ub, gam_t_l.contiguous(), slack,
+                point_weights=point_weights, gam_lb=gam_lb)
         lb_e = torch.where(lane_valid, lb_e, BIG)
         ub_e = torch.where(lane_valid, ub_e, BIG)
 

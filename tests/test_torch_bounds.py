@@ -349,5 +349,3 @@ def test_distance_estimates_bracket_target_distance():
     assert bool(torch.all(d_true <= d_ub.double() + 1e-6))
     exact = tbounds.make_backend(tgt, kind="exact")
     assert float(exact.coreset.eps) == 0.0
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tbounds.make_backend(tgt, kind="lut")

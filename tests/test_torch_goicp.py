@@ -164,7 +164,6 @@ def test_import_never_loads_jax():
 @pytest.mark.parametrize("kw,item", [
     (dict(engine=dict(outer_mode="device")), "item 11"),
     (dict(engine=dict(pool_update="merge")), "item 7"),
-    (dict(bound_backend="lut"), "item 14"),
     (dict(engine=dict(mesh_cubes=2)), "item 16"),
     (dict(seed_pose_centered=(np.eye(3), np.zeros(3))), "item 13"),
     (dict(shared_proxy=object()), "item 13"),
