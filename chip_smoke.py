@@ -8,10 +8,14 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      versions; build the CUDA kernels from `fgoicp_tpu_torch/csrc` and print
      the build seconds;
   2. compare each kernel with its plain torch version on the card at the
-     main paths' shapes (argmin idx equal, nn d2 rtol 1e-6, bounds
-     rtol 2e-4 / atol 2e-5 and lb <= ub) and time both with CUDA events,
-     beside the kernel's bound (operations or bytes at the H100's published
-     peaks), one PyTorch library call where one computes the same function,
+     main paths' shapes (nn_argmin / nn_min d2 and idx bit-equal, also at
+     M in {1, 127, 129} x T in {1, 1023, 1025, 2049}, on a duplicated grid
+     whose tied copies fall in different target slices and where every d2
+     is above BIG, with more than one slice planned at the polish shape;
+     bounds rtol 2e-4 / atol 2e-5 and lb <= ub) and time both with CUDA
+     events, beside the kernel's bound (operations or bytes at the H100's
+     published peaks; for the NN kernels also the instruction-issue
+     ceiling), one PyTorch library call where one computes the same function,
      and, for the trimmed lanes, the unfused path (nearest-proxy kernel plus
      the torch bisection bracket); and `minplus_1d` bit-equal to its plain
      version on seeded lines and on the three passes of the EDT of the smoke
@@ -45,8 +49,9 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      and values at 4,096 nodes within the builder's slack of exact
      distances.
 Every launch counter is set to 0 just before each path and read just
-after.  With --profile, one warm trimmed search-only run is then traced
-with torch.profiler (device time by kernel, launch count).
+after; the phase lines also give the NN kernels' launches per (M, T).  With
+--profile, one warm trimmed search-only run is then traced with
+torch.profiler (device time by kernel, launch count).
 
 Earlier lines report walls, node counts, launch counts and a JSON line of
 the kernels; the last line is {"ok": true, "device": {...}}.  Needs a CUDA
@@ -69,6 +74,13 @@ WORK = ROOT / "build" / "chip_smoke"
 # tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# The H100 SXM's instruction-issue rate: one warp instruction per clock on
+# each of 4 x 132 schedulers at the 1.98 GHz boost clock.  With --fmad=false
+# every sub, mul, add and min of a distance issues on its own: the NN
+# kernels issue about 9.25 (nn_min) and 9.75 (nn_argmin) instructions per
+# (query, target) pair, which sets their issue ceiling below.
+INSTR_RATE = 132 * 4 * 32 * 1.98e9
+NN_INSTRS = {"nn_min": 9.25, "nn_argmin": 9.75}
 # The reference's bunny distance-field resolution (configs/bunny.toml), at
 # which the JAX bench runs the LUT backend (bench.py bunny_lut_res0.002).
 LUT_RESOLUTION = 0.002
@@ -184,7 +196,71 @@ def check_bounds(torch, name, got, want):
                float((got[1] - want[1]).abs().max()))
 
 
-def compare_kernels(torch, pct, pcs, trim_src):
+def nn_equal(torch, name, out_k, out_p):
+    """The NN kernel's d2 (and idx) against its plain version's, bit for
+    bit: the kernel rounds every operation as the plain version does and
+    its merge across target slices is exact.  Returns the max abs error."""
+    torch.cuda.synchronize()
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    for nm, k, p in zip(("d2", "idx"), out_k, out_p):
+        if not torch.equal(k, p):
+            n_bad = int((k != p).sum())
+            raise AssertionError(f"{name}: {n_bad} {nm} values differ from "
+                                 f"the plain version")
+    return float((out_k[0] - out_p[0]).abs().max()) if out_k[0].numel() \
+        else 0.0
+
+
+def nn_edges(torch, dev):
+    """Phase 2, the NN kernels at edge shapes against their plain versions,
+    bit for bit: M in {1, 127, 129} x T in {1, 1023, 1025, 2049}; a 16^3
+    grid listed 3 times (12,288 targets, copies 4,096 apart in different
+    target slices) queried at its nodes and at midpoints (exact ties
+    everywhere; exact hits must take the first copy); and queries 3.5e5 away
+    (every d2 above BIG: (BIG, 0))."""
+    from fgoicp_tpu_torch.ops import cuda_nn
+
+    rng = np.random.default_rng(17)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device=dev)
+
+    def both(label, q, p):
+        out = cuda_nn.nn_argmin(q, p)
+        nn_equal(torch, f"nn_argmin {label}", out,
+                 cuda_nn.nn_argmin_plain(q, p))
+        nn_equal(torch, f"nn_min {label}", cuda_nn.nn_min(q, p),
+                 cuda_nn.nn_min_plain(q, p))
+        return out
+
+    for m in (1, 127, 129):
+        for t in (1, 1023, 1025, 2049):
+            both(f"[{m}x{t}]", f32(rng.uniform(-1, 1, (m, 3))),
+                 f32(rng.uniform(-1, 1, (t, 3))))
+    grid = np.mgrid[0:16, 0:16, 0:16].reshape(3, -1).T.astype(np.float32)
+    pts, qs = f32(np.concatenate([grid] * 3)), f32(np.concatenate(
+        [grid, grid + np.float32(0.5), grid + np.float32([0.5, 0, 0])]))
+    splits, chunk = cuda_nn._plan(dev, qs.shape[0], pts.shape[0])
+    if splits < 3 or chunk > grid.shape[0]:
+        raise AssertionError(f"duplicated grid: plan {splits} x {chunk} "
+                             f"keeps tied copies in one slice")
+    d2, idx = both("duplicated grid", qs, pts)
+    n = grid.shape[0]
+    if not (torch.equal(idx[:n].cpu(), torch.arange(n, dtype=torch.int32))
+            and int(idx.max()) < n and not bool(d2[:n].any())):
+        raise AssertionError("duplicated grid: exact hits not on the first "
+                             "copy")
+    far_q = f32(rng.uniform(-1, 1, (700, 3)) - 2e5)
+    d2, idx = both("far away", far_q, f32(rng.uniform(-1, 1, (5000, 3))))
+    if not (bool(torch.all(d2 == cuda_nn.BIG)) and not bool(idx.any())):
+        raise AssertionError("far away: not (BIG, 0)")
+    say(f"kernel nn_argmin / nn_min edge cases: [1, 127, 129] x [1, 1023, "
+        f"1025, 2049], duplicated grid {tuple(qs.shape)} x "
+        f"{tuple(pts.shape)} in {splits} slices of {chunk}, far away "
+        f"(BIG, 0): bit-equal to the plain versions")
+
+
+def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
     """Phase 2: every kernel against its plain version at main-path
     shapes.  Returns the JSON rows (launch counts filled in later)."""
     from fgoicp_tpu_torch.ops import bounds as bounds_ops
@@ -205,43 +281,63 @@ def compare_kernels(torch, pct, pcs, trim_src):
     t16 = f32(rng.uniform(-0.1, 0.1, size=(16, 1, 3)))
     q48k = (torch.einsum("grc,nc->gnr", R16, pcs) + t16).reshape(-1, 3).contiguous()
 
-    def nn_case(name, kernel, plain, queries, points, reps, plain_reps):
-        out_k = kernel(queries, points)
-        out_p = plain(queries, points)
-        torch.cuda.synchronize()
-        d2_k = out_k[0] if isinstance(out_k, tuple) else out_k
-        d2_p = out_p[0] if isinstance(out_p, tuple) else out_p
-        if isinstance(out_k, tuple) and not torch.equal(out_k[1], out_p[1]):
-            n_bad = int((out_k[1] != out_p[1]).sum())
-            raise AssertionError(f"{name}: {n_bad} argmin indices differ")
-        err = float((d2_k - d2_p).abs().max())
-        if not torch.allclose(d2_k, d2_p, rtol=1e-6, atol=1e-9):
-            raise AssertionError(f"{name}: d2 max abs err {err} beyond rtol 1e-6")
+    def nn_case(name, kernel, plain, queries, points, reps, plain_reps,
+                library=True):
+        err = nn_equal(torch, name, kernel(queries, points),
+                       plain(queries, points))
+        m, t = queries.shape[0], points.shape[0]
+        splits, chunk = cuda_nn._plan(dev, m, t)
         ms = cuda_ms(torch, lambda: kernel(queries, points), reps)
         plain_ms = cuda_ms(torch, lambda: plain(queries, points), plain_reps)
         # The library yardstick: exact pairwise distances, then the min.
-        reduce = (lambda d: torch.min(d, dim=1)) if isinstance(out_k, tuple) \
+        reduce = (lambda d: torch.min(d, dim=1)) if name == "nn_argmin" \
             else (lambda d: torch.amin(d, dim=1))
         lib_ms = cuda_ms(torch, lambda: reduce(torch.cdist(
             queries, points, compute_mode="donot_use_mm_for_euclid_dist")),
-            plain_reps)
-        m, t = queries.shape[0], points.shape[0]
-        out_bytes = 4 * m * (2 if isinstance(out_k, tuple) else 1)
+            plain_reps) if library else None
+        out_bytes = 4 * m * (2 if name == "nn_argmin" else 1)
+        issue_ms = NN_INSTRS[name] * m * t / INSTR_RATE * 1e3
+        say(f"kernel {name} [{m}x{t}]: {splits} target slices of {chunk} "
+            f"({-(-m // cuda_nn.QUERY_TILE) * splits} blocks), issue "
+            f"ceiling {issue_ms!r} ms")
         return report(name, f"{m}x{t}", err, ms, plain_ms, 8.0 * m * t,
                       12.0 * (m + t) + out_bytes, lib_ms)
 
+    # The trimmed pair's proxies, and 16 search-ICP lanes of its source's
+    # 2,048-point search subsample, as the engine draws them.
+    trim_prox = coreset_ops.build(trim_pct, size=1024, seed=0).points
+    sub = np.sort(np.random.default_rng(7).permutation(
+        trim_src.shape[0])[:2048])
+    q32k = (torch.einsum("grc,nc->gnr", R16,
+                         trim_src[torch.from_numpy(sub).to(dev)])
+            + t16).reshape(-1, 3).contiguous()
+    argmin = (cuda_nn.nn_argmin, cuda_nn.nn_argmin_plain)
+    nmin = (cuda_nn.nn_min, cuda_nn.nn_min_plain)
     # nn_argmin: search-ICP correspondences (16 x 3,000 against the 1,024
-    # proxies) and the polish (3,000 against the 18,000-point target).
-    a1 = nn_case("nn_argmin", cuda_nn.nn_argmin, cuda_nn.nn_argmin_plain,
-                 q48k, prox, 50, 10)
-    nn_case("nn_argmin", cuda_nn.nn_argmin, cuda_nn.nn_argmin_plain,
-            pcs, pct, 50, 10)
-    # nn_min: the exact rescore (16 x 3,000 against 18,000) and the proxy
-    # covering radius (18,000 against 1,024).
-    m1 = nn_case("nn_min", cuda_nn.nn_min, cuda_nn.nn_min_plain,
-                 q48k, pct, 20, 3)
-    nn_case("nn_min", cuda_nn.nn_min, cuda_nn.nn_min_plain,
-            pct, prox, 50, 10)
+    # proxies), the polish (3,000 against the 18,000-point target), the
+    # source against the proxies, the trimmed polish (10,000 against
+    # 20,000) and the trimmed search-ICP lanes (16 x 2,048 against 1,024).
+    a1 = nn_case("nn_argmin", *argmin, q48k, prox, 50, 10)
+    if cuda_nn._plan(dev, pcs.shape[0], pct.shape[0])[0] <= 1:
+        raise AssertionError("nn_argmin: one target slice planned at the "
+                             "polish shape; the merge would not run")
+    nn_case("nn_argmin", *argmin, pcs, pct, 50, 10)
+    nn_case("nn_argmin", *argmin, pcs, prox, 50, 10)
+    nn_case("nn_argmin", *argmin, trim_src, trim_pct, 50, 5)
+    nn_case("nn_argmin", *argmin, q32k, trim_prox, 50, 10)
+    # nn_min: the exact rescore (16 x 3,000 against 18,000), the proxy
+    # covering radius (18,000 against 1,024), the trimmed one (20,000
+    # against 1,024) and the trimmed rescore (16 x 10,000 against 20,000).
+    m1 = nn_case("nn_min", *nmin, q48k, pct, 20, 3)
+    nn_case("nn_min", *nmin, pct, prox, 50, 10)
+    nn_case("nn_min", *nmin, trim_pct, trim_prox, 50, 10)
+    q160k = (torch.einsum("grc,nc->gnr", R16, trim_src) + t16).reshape(
+        -1, 3).contiguous()
+    # No library time: torch.cdist refuses a 160,000 x 20,000 launch
+    # (invalid configuration argument).
+    nn_case("nn_min", *nmin, q160k, trim_pct, 10, 1, library=False)
+    del q160k, q32k
+    nn_edges(torch, dev)
 
     def groups(g, src, spans_lo=0.03, spans_hi=0.25, deltas=None):
         """base [g, ns, 3] and (gam_ub, gam_lb) for g random rotation
@@ -520,7 +616,7 @@ def timed_build(torch, points, bounds, builder="auto", dtype=None):
     return field, seconds, peak, estimate
 
 
-def lut_phase(torch, dev, pair, counted, launches):
+def lut_phase(torch, dev, pair, counted, launches, reset, nn_shapes):
     """Phase 7: LUT search-only on the smoke pair, as the JAX bench's
     bunny_lut_res0.002 line runs it (lut_resolution 0.002, bfloat16 field,
     multi-start off), cold then warm through GoICP(..., bound_backend="lut")
@@ -540,8 +636,7 @@ def lut_phase(torch, dev, pair, counted, launches):
         raise AssertionError(f"LUT field built by {field.builder}, not edt")
     del field, norm
     for run in ("cold", "warm"):
-        for fn in counted:
-            fn.launches = 0
+        reset()
         t_run = time.time()
         model = GoICP(pair[0], pair[1], lut_resolution=LUT_RESOLUTION,
                       mse_threshold=1e-3,
@@ -563,7 +658,7 @@ def lut_phase(torch, dev, pair, counted, launches):
             f"{s.translation_nodes}, rotation_children {s.rotation_children}, "
             f"outer_steps {s.outer_steps}, inner_loop_steps "
             f"{s.inner_loop_steps}, icp_runs {s.icp_runs}, launches "
-            f"{launched}")
+            f"{launched}, NN launches by shape {nn_shapes()}")
         check_result(f"LUT search-only {run}", model, R, t, r_err, t_err)
         if model.backend.field.builder != "edt":
             raise AssertionError("LUT search-only: field not built by edt")
@@ -664,6 +759,7 @@ def main() -> int:
                                   torch.from_numpy(trim_pair[1]).to(dev))
     kernels = compare_kernels(torch, norm.pct.contiguous(),
                               norm.pcs.contiguous(),
+                              trim_norm.pct.contiguous(),
                               trim_norm.pcs.contiguous())
     kernels.append(compare_minplus(torch, norm))
     del norm, trim_norm
@@ -676,6 +772,18 @@ def main() -> int:
                cuda_bounds.fused_bounds_lanes_trimmed,
                cuda_bounds.fused_bounds, cuda_minplus.minplus_1d)
     launches = {fn.__name__: 0 for fn in counted}
+    nn_fns = (cuda_nn.nn_argmin, cuda_nn.nn_min)
+
+    def reset():
+        for fn in counted:
+            fn.launches = 0
+        for fn in nn_fns:
+            fn.shapes.clear()
+
+    def nn_shapes():
+        """The NN kernels' launches per (M, T) since the last reset."""
+        return {fn.__name__: {f"{m}x{t}": n for (m, t), n in
+                              sorted(fn.shapes.items())} for fn in nn_fns}
 
     def drive(label, cfg, pct_in, pcs_in, truth, **engine):
         """Cold then warm register(); returns each run's launches."""
@@ -683,8 +791,7 @@ def main() -> int:
             setattr(cfg.engine, key, value)
         out = {}
         for run in ("cold", "warm"):
-            for fn in counted:
-                fn.launches = 0
+            reset()
             t_run = time.time()
             model, R, t = register(cfg, pct_in, pcs_in, device="cuda")
             torch.cuda.synchronize()
@@ -701,7 +808,8 @@ def main() -> int:
                 f"{s.translation_nodes}, rotation_children "
                 f"{s.rotation_children}, outer_steps {s.outer_steps}, "
                 f"inner_loop_steps {s.inner_loop_steps}, icp_runs "
-                f"{s.icp_runs}, launches {launched}")
+                f"{s.icp_runs}, launches {launched}, NN launches by shape "
+                f"{nn_shapes()}")
             check_result(label, model, R, t, r_err, t_err)
             out[run] = dict(model=model, launched=launched)
         return out
@@ -739,7 +847,7 @@ def main() -> int:
             ["nn_argmin", "nn_min", "fused_bounds"])
     cfg.engine.frontier_mode = "pooled"
 
-    lut_phase(torch, dev, pair, counted, launches)
+    lut_phase(torch, dev, pair, counted, launches, reset, nn_shapes)
     # Phase 8 runs no user entry point: its launches are not counted.
     bunny_field_phase(torch, dev)
 

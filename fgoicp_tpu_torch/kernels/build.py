@@ -42,10 +42,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes.  Every one returns cudaGetLastError().
 _SIGNATURES = {
-    # (queries, points, M, T, d2_out, idx_out, stream)
-    "fgoicp_nn_argmin": (_P, _P, _I, _I, _P, _P, _P),
-    # (queries, points, M, T, d2_out, stream)
-    "fgoicp_nn_min": (_P, _P, _I, _I, _P, _P),
+    # (queries, points, M, T, splits, chunk, d2_out, idx_out, keys, stream)
+    "fgoicp_nn_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # (queries, points, M, T, splits, chunk, d2_out, stream)
+    "fgoicp_nn_min": (_P, _P, _I, _I, _I, _I, _P, _P),
     # (base, gids, t, proxies, gam_ub, gam_lb, gam_t, w, slack,
     #  G, ns, P, L, lb_out, ub_out, stream)
     "fgoicp_bounds_lanes": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
