@@ -17,10 +17,20 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      published peaks; for the NN kernels also the instruction-issue
      ceiling), one PyTorch library call where one computes the same function,
      and, for the trimmed lanes, the unfused path (nearest-proxy kernel plus
-     the torch bisection bracket); and `minplus_1d` bit-equal to its plain
-     version on seeded lines and on the three passes of the EDT of the smoke
-     target's field at lut_resolution 0.002, timed per full pass (library
-     none: no PyTorch call computes a min-plus product);
+     the torch bisection bracket); the two box-pruned bound kernels
+     (`fused_bounds_lanes`, `fused_bounds`) also bit-equal to their plain
+     versions with one-hot point weights (each node's sum is then one
+     term) for every source point at the main paths' shapes and at edge
+     shapes (P in {1, 31, 33, 1024, 2049} x ns in {1, 129, 3000}, points
+     on box faces and corners, duplicated proxies split across buckets,
+     every d2 above BIG), with the (point, proxy) pairs and (point, box)
+     tests they evaluate from their counters, which set their bound (the
+     full scan's beside it), the issue ceiling of that work, and their time
+     given the backend's buckets and the source order, as GoICP gives
+     them, and given a bare proxies tensor; and `minplus_1d` bit-equal to
+     its plain version on seeded lines and on the three passes of the EDT
+     of the smoke target's field at lut_resolution 0.002, timed per full
+     pass (library none: no PyTorch call computes a min-plus product);
   3. run the default main path, `register(Config)` on cuda, on a seeded
      asymmetric 18,000 / 3,000-point pair with a known pose: it must
      certify (last_certified_gap <= sse_threshold) and recover the pose
@@ -50,8 +60,10 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      distances.
 Every launch counter is set to 0 just before each path and read just
 after; the phase lines also give the NN kernels' launches per (M, T).  With
---profile, one warm trimmed search-only run is then traced with
-torch.profiler (device time by kernel, launch count).
+--profile, one warm run each of trimmed search-only, search-only and
+grouped search-only is then traced with torch.profiler (device time by
+kernel, launch count, and the device time and launches of the phase's
+bound kernel).
 
 Earlier lines report walls, node counts, launch counts and a JSON line of
 the kernels; the last line is {"ok": true, "device": {...}}.  Needs a CUDA
@@ -81,6 +93,14 @@ PEAK_BYTES = 3.35e12
 # (query, target) pair, which sets their issue ceiling below.
 INSTR_RATE = 132 * 4 * 32 * 1.98e9
 NN_INSTRS = {"nn_min": 9.25, "nn_argmin": 9.75}
+# The untrimmed bound kernels' box-pruned search (csrc/bounds_terms.cuh):
+# 9.25 issues per (point, proxy) pair evaluated, as nn_min, and about 19 per
+# (point, box) test (6 sub, 6 max, 3 mul, 2 add, a compare and the vote;
+# counted from the source).  Their bound counts the flops of that work: 8 a
+# pair (3 sub, 3 mul, 2 add) and 17 a box test (6 sub, 6 max, 3 mul, 2 add),
+# the compare and the min left out of both.
+PAIR_INSTRS, BOX_INSTRS = 9.25, 19.0
+PAIR_FLOPS, BOX_FLOPS = 8.0, 17.0
 # The reference's bunny distance-field resolution (configs/bunny.toml), at
 # which the JAX bench runs the LUT backend (bench.py bunny_lut_res0.002).
 LUT_RESOLUTION = 0.002
@@ -260,6 +280,158 @@ def nn_edges(torch, dev):
         f"(BIG, 0): bit-equal to the plain versions")
 
 
+def plain_terms(torch, base, gids, t_lanes, proxies, gam_ub, gam_lb,
+                gam_t_lanes, slack):
+    """The plain version's per-point terms (lt, ut) [nodes, ns] with unit
+    weights.  With one-hot weights at point j its sums are column j bit for
+    bit: every other term is +0."""
+    from fgoicp_tpu_torch.ops import cuda_bounds
+    ones = torch.ones(base.shape[1], dtype=torch.float32, device=base.device)
+    parts = list(cuda_bounds._lane_terms_plain(
+        base, gids, t_lanes, proxies, gam_ub, gam_lb, gam_t_lanes, slack,
+        ones))
+    return (torch.cat([lt for _, _, lt in parts]),
+            torch.cat([ut for _, ut, _ in parts]))
+
+
+def one_hot_terms(torch, name, kernel, terms, points=None, plain=None):
+    """The bound kernel's (lb, ub) with one-hot point weights at each source
+    point j of `points` (default every point), bit for bit against column j
+    of the plain version's terms (lt, ut) [nodes, ns] (`plain_terms`): each
+    node's sum is then that single term, computed with the same rounding,
+    so any difference is a wrong nearest-proxy value.  When plain is given,
+    the plain version's own one-hot sums are held to those columns at
+    `picks_of(ns)`.  kernel(w) / plain(w) take the weights [ns]."""
+    lt, ut = terms
+    ns = lt.shape[1]
+    points = list(range(ns)) if points is None else list(points)
+    got_lb = torch.empty((len(points), lt.shape[0]), device=lt.device)
+    got_ub = torch.empty_like(got_lb)
+    w1 = torch.zeros(ns, dtype=torch.float32, device=lt.device)
+    for row, j in enumerate(points):
+        w1.zero_()
+        w1[j] = 1.0
+        lb, ub = kernel(w1)
+        got_lb[row], got_ub[row] = lb.reshape(-1), ub.reshape(-1)
+    for j in (picks_of(ns) if plain is not None else ()):
+        w1.zero_()
+        w1[j] = 1.0
+        lb, ub = plain(w1)
+        if not (torch.equal(lb.reshape(-1), lt[:, j])
+                and torch.equal(ub.reshape(-1), ut[:, j])):
+            raise AssertionError(f"{name}: the plain version's one-hot sums "
+                                 f"at point {j} are not its terms")
+    for nm, k, p in (("lb", got_lb, lt.T[points]), ("ub", got_ub,
+                                                    ut.T[points])):
+        if not torch.equal(k, p):
+            bad = [points[r] for r in
+                   (k != p).any(dim=1).nonzero()[:, 0].tolist()]
+            raise AssertionError(f"{name}: one-hot {nm} differs from the "
+                                 f"plain version at {len(bad)} points, "
+                                 f"e.g. {bad[:8]}")
+
+
+def picks_of(ns, n=6):
+    """Point indices for one-hot checks: the first, the last and n drawn
+    from their own seed (the other inputs' draws stay as they were)."""
+    rng = np.random.default_rng(ns)
+    return sorted({0, ns - 1, *rng.integers(0, ns, size=n).tolist()})
+
+
+def pair_counts(torch, launch):
+    """(pairs evaluated, box tests) of one kernel launch, from the kernel's
+    counters: launch(counts) runs it with an int64 [2] counter tensor."""
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    launch(counts)
+    torch.cuda.synchronize()
+    return [int(v) for v in counts.cpu()]
+
+
+def bounds_edges(torch, dev):
+    """Phase 2, the two pruned bound kernels at edge shapes against their
+    plain versions: lb / ub within rtol 2e-4 / atol 2e-5 with cluster-like
+    weights, and bit for bit with one-hot weights (at every point given the
+    proxies' buckets and the source order, at `picks_of` given a bare
+    proxies tensor and no order), on 8 lanes of 2 groups and a 2 x 4 grid:
+    P in {1, 31, 33, 1024, 2049} x ns in {1, 129, 3000} (seeded clouds);
+    proxies on an 8^3 grid with queries on its nodes and face midpoints
+    (points on box faces and corners); 33 copies of one proxy split across
+    buckets; and every d2 above BIG."""
+    from fgoicp_tpu_torch.ops import cuda_bounds
+
+    rng = np.random.default_rng(19)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                    device=dev)
+
+    def check(label, src, proxies, t_l, rotate=True):
+        ns = src.shape[0]
+        c, s_ = np.cos(0.3), np.sin(0.3)
+        R = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32)
+        base = f32(np.stack([src, src @ R.T if rotate else src]))
+        prox = f32(proxies)
+        gam_ub = f32(rng.uniform(0.0, 0.05, size=(2, ns)))
+        gam_lb = gam_ub + f32(rng.uniform(0.0, 0.02, size=(2, ns)))
+        w = f32(rng.integers(1, 6, size=(ns,)))
+        gids = torch.as_tensor(np.arange(8) % 2, dtype=torch.int32,
+                               device=dev)
+        t_l, gam_t = f32(t_l), f32(rng.uniform(0.0, 0.1, size=(8,)))
+        tc, gt = t_l.reshape(2, 4, 3), gam_t.reshape(2, 4)
+        slack = float(np.float32(0.01))
+        buckets = cuda_bounds.proxy_buckets(prox)
+        order = cuda_bounds.source_order(f32(src))
+        lanes = lambda wt, px=buckets, po=order: \
+            cuda_bounds.fused_bounds_lanes(
+                base, gids, t_l, px, gam_ub, gam_t, slack, point_weights=wt,
+                gam_lb=gam_lb, point_order=po)
+        lanes_p = lambda wt: cuda_bounds.fused_bounds_lanes_plain(
+            base, gids, t_l, prox, gam_ub, gam_lb, gam_t, slack, wt)
+        grid = lambda wt, px=buckets, po=order: cuda_bounds.fused_bounds(
+            base, tc, px, gam_ub, gt, slack, point_weights=wt,
+            gam_lb=gam_lb, point_order=po)
+        grid_p = lambda wt: cuda_bounds.fused_bounds_plain(
+            base, tc, prox, gam_ub, gam_lb, gt, slack, wt)
+        grid_ids = torch.arange(2, dtype=torch.int32,
+                                device=dev).repeat_interleave(4)
+        for name, k, p, ids in (("fused_bounds_lanes", lanes, lanes_p, gids),
+                                ("fused_bounds", grid, grid_p, grid_ids)):
+            check_bounds(torch, f"{name} {label}", k(w), p(w))
+            terms = plain_terms(torch, base, ids, t_l, prox, gam_ub, gam_lb,
+                                gam_t, slack)
+            one_hot_terms(torch, f"{name} {label}", k, terms, plain=p)
+            one_hot_terms(torch, f"{name} {label} (bare proxies)",
+                          lambda wt: k(wt, prox, None), terms,
+                          picks_of(ns, 2))
+
+    for n_prox in (1, 31, 33, 1024, 2049):
+        for ns in (1, 129, 3000):
+            check(f"[P{n_prox} ns{ns}]",
+                  rng.uniform(-0.7, 0.7, size=(ns, 3)),
+                  rng.uniform(-0.9, 0.9, size=(n_prox, 3)),
+                  rng.uniform(-0.4, 0.4, size=(8, 3)))
+    grid = np.mgrid[0:8, 0:8, 0:8].reshape(3, -1).T * np.float32(0.125)
+    half = np.float32(0.0625)
+    check("[grid nodes and faces]",
+          np.concatenate([grid, grid + [half, 0, 0], grid + [half, half, 0]]),
+          grid, np.repeat([[0, 0, 0], [0.125, 0, -0.125]], 4, axis=0),
+          rotate=False)
+    dup = np.array([[0.3, 0.1, -0.2]])
+    check("[33 copies of one proxy]",
+          np.concatenate([rng.uniform(-0.7, 0.7, size=(200, 3)),
+                          np.repeat(dup, 20, axis=0)]),
+          np.concatenate([rng.uniform(-0.9, 0.9, size=(100, 3)),
+                          np.repeat(dup, 33, axis=0),
+                          rng.uniform(-0.9, 0.9, size=(30, 3))]),
+          rng.uniform(-0.05, 0.05, size=(8, 3)))
+    check("[every d2 above BIG]", rng.uniform(-0.7, 0.7, size=(300, 3)) + 2e5,
+          rng.uniform(-0.9, 0.9, size=(700, 3)),
+          rng.uniform(-0.4, 0.4, size=(8, 3)))
+    say("kernel fused_bounds_lanes / fused_bounds edge cases: P [1, 31, 33, "
+        "1024, 2049] x ns [1, 129, 3000], grid nodes and faces, 33 copies "
+        "of one proxy, every d2 above BIG: lb / ub within rtol 2e-4 / atol "
+        "2e-5, one-hot weights bit-equal to the plain versions at every "
+        "point (some given bare proxies)")
+
+
 def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
     """Phase 2: every kernel against its plain version at main-path
     shapes.  Returns the JSON rows (launch counts filled in later)."""
@@ -364,9 +536,12 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
         # term arrays (26 bisection counts and the kept sums).
         return 8.0 * lanes * ns * n_prox + 2.0 * 27 * lanes * ns
 
-    def lane_bytes(g, ns, lanes):
-        # base, gam_ub, gam_lb, w; gids, t, gam_t; proxies; lb, ub.
-        return 4.0 * (g * ns * 5 + ns + lanes * 5 + 3 * n_prox + 2 * lanes)
+    def lane_bytes(g, ns, lanes, n_buckets=None):
+        # base, gam_ub, gam_lb, w; gids, t, gam_t; lb, ub; the proxies, or
+        # the pruned kernels' bucket rows, boxes and source order.
+        search = 3 * n_prox if n_buckets is None else (
+            n_buckets * (3 * cuda_bounds.BUCKET + 6) + ns)
+        return 4.0 * (g * ns * 5 + ns + lanes * 7 + search)
 
     def bounds_case(name, kernel, plain, reps, plain_reps, shape, flops,
                     nbytes):
@@ -376,6 +551,49 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
         plain_ms = cuda_ms(torch, plain, plain_reps)
         return report(name, shape, err, ms, plain_ms, flops, nbytes)
 
+    proxy_backend = bounds_ops.ProxyBackend(coreset=proxy)
+    buckets = proxy_backend.buckets
+    n_buckets = buckets.boxes.shape[0]
+
+    def pruned_case(name, shape, src, kernel, bare, plain, launch, terms,
+                    n_pairs, nbytes, reps, plain_reps):
+        """A box-pruned kernel at a main-path shape.  kernel(w) is given the
+        backend's buckets and the source's order, as GoICP gives them;
+        bare(w) a bare proxies tensor and no order (buckets built per call);
+        plain(w) its plain version; w [ns] point weights (None: the path's).
+        lb / ub against the plain version; one-hot weights bit for bit at
+        every source point through kernel, at `picks_of` through bare; the
+        pairs evaluated and box tests (launch(counts), the kernel's
+        counters), which set its bound (PAIR_FLOPS and BOX_FLOPS each at the
+        f32 peak, against the bytes), the full scan's bound beside it, and
+        their issue ceiling; times: the kernel, the plain version, the
+        buckets' and the order's builds, and bare."""
+        err = check_bounds(torch, name, kernel(None), plain(None))
+        one_hot_terms(torch, name, kernel, terms, plain=plain)
+        one_hot_terms(torch, f"{name} (bare proxies)", bare, terms,
+                      picks_of(terms[0].shape[1]))
+        pairs, tests = pair_counts(torch, launch)
+        ms = cuda_ms(torch, lambda: kernel(None), reps)
+        plain_ms = cuda_ms(torch, lambda: plain(None), plain_reps)
+        case = report(name, shape, err, ms, plain_ms,
+                      PAIR_FLOPS * pairs + BOX_FLOPS * tests, nbytes)
+        case["full_scan_bound_ms"] = bound(PAIR_FLOPS * n_pairs, nbytes)[0]
+        bucket_ms = cuda_ms(torch, lambda: cuda_bounds.proxy_buckets(prox),
+                            reps)
+        order_ms = cuda_ms(torch, lambda: cuda_bounds.source_order(src), reps)
+        bare_ms = cuda_ms(torch, lambda: bare(None), reps)
+        ceil_ms = (PAIR_INSTRS * pairs + BOX_INSTRS * tests) / INSTR_RATE * 1e3
+        full_ms = PAIR_INSTRS * n_pairs / INSTR_RATE * 1e3
+        say(f"kernel {name} [{shape}] pruning (kernel counters): {pairs} of "
+            f"{n_pairs} pairs evaluated ({pairs / n_pairs!r}), {tests} box "
+            f"tests; bound {case['bound_ms']!r} ms for these (full scan "
+            f"{case['full_scan_bound_ms']!r} ms), issue ceiling {ceil_ms!r} "
+            f"ms (full scan {full_ms!r} ms); buckets build {bucket_ms!r} ms, "
+            f"source order build {order_ms!r} ms, wrapper given bare proxies "
+            f"{bare_ms!r} ms; one-hot weights bit-equal at all "
+            f"{terms[0].shape[1]} points")
+        return case
+
     # fused_bounds_lanes: G = 256 groups (ub + lb pass of 128 children),
     # L = 1024 lanes, 1,024 cluster reps, 1,024 proxies.
     g, lanes, reps_pts = 256, 1024, clusters.reps
@@ -383,16 +601,26 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
     gids, t_l, gam_t = lanes_of(g, lanes)
     w = clusters.weights.contiguous()
     ns = reps_pts.shape[0]
-    b1 = bounds_case(
-        "fused_bounds_lanes",
-        lambda: cuda_bounds.fused_bounds_lanes(
-            base, gids, t_l, prox, gam_ub, gam_t, slack, point_weights=w,
-            gam_lb=gam_lb),
-        lambda: cuda_bounds.fused_bounds_lanes_plain(
-            base, gids, t_l, prox, gam_ub, gam_lb, gam_t,
-            float(np.float32(slack)), w),
-        50, 5, f"G{g} L{lanes} ns{ns} P{n_prox}", 8.0 * lanes * ns * n_prox,
-        lane_bytes(g, ns, lanes))
+    slack32 = float(np.float32(slack))
+    order1 = cuda_bounds.source_order(reps_pts)
+    b1 = pruned_case(
+        "fused_bounds_lanes", f"G{g} L{lanes} ns{ns} P{n_prox}", reps_pts,
+        lambda wt: cuda_bounds.fused_bounds_lanes(
+            base, gids, t_l, buckets, gam_ub, gam_t, slack,
+            point_weights=w if wt is None else wt, gam_lb=gam_lb,
+            point_order=order1),
+        lambda wt: cuda_bounds.fused_bounds_lanes(
+            base, gids, t_l, prox, gam_ub, gam_t, slack,
+            point_weights=w if wt is None else wt, gam_lb=gam_lb),
+        lambda wt: cuda_bounds.fused_bounds_lanes_plain(
+            base, gids, t_l, prox, gam_ub, gam_lb, gam_t, slack32,
+            w if wt is None else wt),
+        lambda c: cuda_bounds._launch_lanes(
+            base, gids, t_l, gam_ub, gam_lb, gam_t, w, slack32, buckets,
+            order1, c),
+        plain_terms(torch, base, gids, t_l, prox, gam_ub, gam_lb, gam_t,
+                    slack32),
+        lanes * ns * n_prox, lane_bytes(g, ns, lanes, n_buckets), 50, 5)
 
     # fused_bounds_lanes_trimmed: the trimmed pooled lanes of the partial-
     # overlap pair, L = 1024 lanes over the full 10,000-point source,
@@ -425,7 +653,6 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
                 bounds_ops.reduce_point_terms(ub_pt, None, keep,
                                               drop_mode="under"))
 
-    proxy_backend = bounds_ops.ProxyBackend(coreset=proxy)
     # The unfused path forms each trimmed bound as a lane total minus its
     # drop sum, so its rounding shows relative to the untrimmed total
     # (rtol 2e-4 of it).
@@ -471,16 +698,28 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
     gt4 = geo.translation_uncertainty_radius(
         f32(rng.uniform(0.05, 0.5, size=(g, n_trans))))
     ones4 = torch.ones(ns4, dtype=torch.float32, device=dev)
-    b4 = bounds_case(
-        "fused_bounds",
-        lambda: cuda_bounds.fused_bounds(base4, tc4, prox, gub4, gt4, slack,
-                                         gam_lb=glb4),
-        lambda: cuda_bounds.fused_bounds_plain(
-            base4, tc4, prox, gub4, glb4, gt4, float(np.float32(slack)),
-            ones4),
-        10, 1, f"G{g} B{n_trans} ns{ns4} P{n_prox}",
-        8.0 * g * n_trans * ns4 * n_prox,
-        4.0 * (g * ns4 * 5 + ns4 + g * n_trans * 6 + 3 * n_prox))
+    order4 = cuda_bounds.source_order(pcs)
+    gids4 = torch.arange(g, dtype=torch.int32, device=dev).repeat_interleave(
+        n_trans)
+    b4 = pruned_case(
+        "fused_bounds", f"G{g} B{n_trans} ns{ns4} P{n_prox}", pcs,
+        lambda wt: cuda_bounds.fused_bounds(
+            base4, tc4, buckets, gub4, gt4, slack, point_weights=wt,
+            gam_lb=glb4, point_order=order4),
+        lambda wt: cuda_bounds.fused_bounds(
+            base4, tc4, prox, gub4, gt4, slack, point_weights=wt,
+            gam_lb=glb4),
+        lambda wt: cuda_bounds.fused_bounds_plain(
+            base4, tc4, prox, gub4, glb4, gt4, slack32,
+            ones4 if wt is None else wt),
+        lambda c: cuda_bounds._launch_grid(base4, tc4, gub4, glb4, gt4,
+                                           ones4, slack32, buckets, order4, c),
+        plain_terms(torch, base4, gids4, tc4.reshape(-1, 3), prox, gub4,
+                    glb4, gt4.reshape(-1), slack32),
+        g * n_trans * ns4 * n_prox,
+        4.0 * (g * ns4 * 5 + ns4 + g * n_trans * 6
+               + n_buckets * (3 * cuda_bounds.BUCKET + 6) + ns4), 10, 1)
+    bounds_edges(torch, dev)
 
     bounds_src = "fgoicp_tpu_torch/csrc/"
     return [
@@ -751,6 +990,12 @@ def main() -> int:
     pair = known_transform_pair(cloud, 18000, 3000)
     trim_pair = partial_overlap_pair()
     dev = torch.device("cuda")
+    WORK.mkdir(parents=True, exist_ok=True)
+    cfg, pct_in, pcs_in = write_config(
+        "smoke", pair[0], pair[1], "mse_threshold = 1e-3")
+    tcfg, tpct_in, tpcs_in = write_config(
+        "trimmed", trim_pair[0], trim_pair[1],
+        "mse_threshold = 1e-3\ntrim = true\ntrim_fraction = 0.3")
 
     # Phase 2: kernels against their plain versions, in the normalized frame.
     norm = geo.Normalization(torch.from_numpy(pair[0]).to(dev),
@@ -766,7 +1011,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Phases 3 to 7: the main paths through register(Config) and GoICP.
-    WORK.mkdir(parents=True, exist_ok=True)
     counted = (cuda_nn.nn_argmin, cuda_nn.nn_min,
                cuda_bounds.fused_bounds_lanes,
                cuda_bounds.fused_bounds_lanes_trimmed,
@@ -823,17 +1067,12 @@ def main() -> int:
                 raise AssertionError(f"{label} {run}: kernels {missing} "
                                      f"never launched on the main path")
 
-    cfg, pct_in, pcs_in = write_config(
-        "smoke", pair[0], pair[1], "mse_threshold = 1e-3")
     drive("default", cfg, pct_in, pcs_in, pair, icp_multi_start=True)
     search = drive("search-only", cfg, pct_in, pcs_in, pair,
                    icp_multi_start=False)
     require("search-only", search,
             ["nn_argmin", "nn_min", "fused_bounds_lanes"])
 
-    tcfg, tpct_in, tpcs_in = write_config(
-        "trimmed", trim_pair[0], trim_pair[1],
-        "mse_threshold = 1e-3\ntrim = true\ntrim_fraction = 0.3")
     drive("trimmed default", tcfg, tpct_in, tpcs_in, trim_pair,
           icp_multi_start=True)
     tsearch = drive("trimmed search-only", tcfg, tpct_in, tpcs_in, trim_pair,
@@ -854,7 +1093,15 @@ def main() -> int:
     for krow in kernels:
         krow["launches"] = launches[krow["name"]]
     if "--profile" in sys.argv[1:]:
-        profile_trimmed(torch, register, tcfg, tpct_in, tpcs_in)
+        profile_run(torch, register, "trimmed search-only", tcfg, tpct_in,
+                    tpcs_in, "bounds_lanes_trimmed_kernel",
+                    icp_multi_start=False)
+        profile_run(torch, register, "search-only", cfg, pct_in, pcs_in,
+                    "bounds_lanes_kernel", icp_multi_start=False,
+                    frontier_mode="pooled")
+        profile_run(torch, register, "grouped search-only", cfg, pct_in,
+                    pcs_in, "bounds_grid_kernel", icp_multi_start=False,
+                    frontier_mode="grouped")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -862,11 +1109,14 @@ def main() -> int:
     return 0
 
 
-def profile_trimmed(torch, register, cfg, pct_in, pcs_in):
-    """One warm trimmed search-only register() under torch.profiler: device
-    time by kernel, the device busy share and the launch count."""
+def profile_run(torch, register, label, cfg, pct_in, pcs_in, kernel,
+                **engine):
+    """One warm register() of a phase under torch.profiler: device time by
+    kernel, the device busy share, the launch count, and the device time
+    and launches of the named bound kernel."""
     from torch.profiler import ProfilerActivity, profile
-    cfg.engine.icp_multi_start = False
+    for key, value in engine.items():
+        setattr(cfg.engine, key, value)
     register(cfg, pct_in, pcs_in, device="cuda")  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -876,18 +1126,22 @@ def profile_trimmed(torch, register, cfg, pct_in, pcs_in):
         register(cfg, pct_in, pcs_in, device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t_run
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in events)
-    n_launch = sum(e.count for e in prof.key_averages()
+    n_launch = sum(e.count for e in averages
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
-    say(f"profile trimmed search-only (warm): wall {wall!r} s, device busy "
+    mine = [e for e in events if kernel in e.key]
+    say(f"profile {label} (warm): wall {wall!r} s, device busy "
         f"{busy_us / 1e6!r} s ({100 * busy_us / 1e6 / wall!r} %), kernel "
-        f"launches {n_launch}")
-    say(prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=15, max_name_column_width=60))
+        f"launches {n_launch}; {kernel}: "
+        f"{sum(e.self_device_time_total for e in mine) / 1e3!r} ms of device "
+        f"time in {sum(e.count for e in mine)} launches")
+    say(averages.table(sort_by="self_device_time_total", row_limit=15,
+                       max_name_column_width=60))
 
 
 if __name__ == "__main__":

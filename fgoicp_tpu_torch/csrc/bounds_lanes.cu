@@ -11,13 +11,16 @@
 //
 // Design.  One block per lane (the main path's 1024 lanes are ~8 blocks per
 // SM on 132 SMs).  The block reads gids[l] itself, which replaces the TPU
-// kernel's scalar prefetch; the per-point work and the block reduction are
-// bounds_terms.cuh's.  What bounds it: f32 ALU work, about 8 flops per
-// (source point, proxy) pair; memory traffic is negligible (a lane reads ns
-// rows of base and gammas once, the proxies once per block).
+// kernel's scalar prefetch.  The nearest-proxy search is bounds_terms.cuh's
+// box-pruned one over the Morton-bucketed proxies, exact bit for bit; the
+// block reduction is shared too.  What bounds it: the (point, proxy) pairs
+// that the pruning leaves plus the (point, box) tests, f32 ALU work; memory
+// traffic is negligible (a lane reads ns rows of base and gammas once, the
+// buckets once per block).
 //
 // Only the final sums over i run in another order than torch.sum in the
-// plain version (fgoicp_tpu_torch/ops/cuda_bounds.py).
+// plain version (fgoicp_tpu_torch/ops/cuda_bounds.py): they follow the
+// source order.
 
 #include "bounds_terms.cuh"
 
@@ -27,38 +30,45 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 bounds_lanes_kernel(const float* __restrict__ base, const int* __restrict__ gids,
-                    const float* __restrict__ t, const float* __restrict__ prox,
+                    const float* __restrict__ t, fgoicp::Buckets bk,
                     const float* __restrict__ gam_ub,
                     const float* __restrict__ gam_lb,
                     const float* __restrict__ gam_t, const float* __restrict__ w,
-                    float slack, int n_groups, int ns, int n_prox,
-                    float* __restrict__ lb_out, float* __restrict__ ub_out) {
+                    float slack, int n_groups, int ns,
+                    unsigned long long* counts, float* __restrict__ lb_out,
+                    float* __restrict__ ub_out) {
   const int lane = blockIdx.x;
   // Out-of-range group ids clamp, as a TPU index map would.
   const size_t g = min(max(gids[lane], 0), n_groups - 1);
   const fgoicp::Node nd{base + g * ns * 3, gam_ub + g * ns, gam_lb + g * ns,
                         t[3 * lane + 0], t[3 * lane + 1], t[3 * lane + 2],
                         gam_t[lane]};
-  fgoicp::node_bounds<kThreads>(nd, w, slack, ns, prox, n_prox, lb_out + lane,
-                                ub_out + lane);
+  fgoicp::node_bounds<kThreads>(nd, w, slack, ns, bk, lb_out + lane,
+                                ub_out + lane, counts);
 }
 
 }  // namespace
 
 extern "C" {
 
-// base [G, ns, 3], gids [L] i32, t [L, 3], proxies [P, 3], gam_ub/gam_lb
-// [G, ns], gam_t [L], w [ns] (f32 unless noted, contiguous, on the device of
-// `stream`) -> lb_out, ub_out [L] f32.
+// base [G, ns, 3], gids [L] i32, t [L, 3], rows [n_buckets * 32, 3] and
+// boxes [n_buckets, 6] (the bucketed proxies), order [ns] i32 (the source
+// order, or null), gam_ub/gam_lb [G, ns], gam_t [L], w [ns] (f32 unless
+// noted, contiguous, on the device of `stream`) -> lb_out, ub_out [L] f32.
+// counts (u64 [2] or null) gets the pairs evaluated and the box tests added.
 int fgoicp_bounds_lanes(const float* base, const int* gids, const float* t,
-                        const float* proxies, const float* gam_ub,
-                        const float* gam_lb, const float* gam_t, const float* w,
-                        float slack, int n_groups, int ns, int n_prox, int lanes,
-                        float* lb_out, float* ub_out, cudaStream_t stream) {
+                        const float* rows, const float* boxes, const int* order,
+                        const float* gam_ub, const float* gam_lb,
+                        const float* gam_t, const float* w, float slack,
+                        int n_groups, int ns, int n_buckets, int lanes,
+                        unsigned long long* counts, float* lb_out,
+                        float* ub_out, cudaStream_t stream) {
   if (lanes > 0) {
-    bounds_lanes_kernel<<<lanes, kThreads, 0, stream>>>(
-        base, gids, t, proxies, gam_ub, gam_lb, gam_t, w, slack, n_groups, ns,
-        n_prox, lb_out, ub_out);
+    const fgoicp::Buckets bk{rows, boxes, order, n_buckets};
+    bounds_lanes_kernel<<<lanes, kThreads,
+                          fgoicp::bucket_smem_bytes(n_buckets), stream>>>(
+        base, gids, t, bk, gam_ub, gam_lb, gam_t, w, slack, n_groups, ns,
+        counts, lb_out, ub_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,17 +12,51 @@
 // fgoicp_tpu/ops/pallas_bounds.py (_kernel, _lane_kernel,
 // _lane_kernel_trimmed).
 //
-// Design.  One block per node.  The proxies are staged in shared memory as
-// float4 (all at once when P <= kPTile = 2048, 32 KB; in tiles otherwise) and
-// read as broadcasts.  Each thread owns kPerThread source points per pass, so
-// one 16-byte broadcast read of a proxy feeds kPerThread distance evaluations
-// and the loop is held by the f32 ALU, not by shared-memory loads.
+// Two searches for m, both one block per node:
 //
-// What bounds these kernels on the card: f32 ALU work, about 8 flops per
-// (source point, proxy) pair with FMA contraction disabled.  wgmma and TMA do
-// not apply: distances stay off the tensor cores under the exact-distance
-// rule of ROADMAP.md (the bounds must stay valid, lb <= SSE <= ub, and the
-// norm-expansion form cancels near zero).
+// Full scan (for_each_point_terms; the trimmed lane kernel).  The proxies
+// are staged in shared memory as float4 (all at once when P <= kPTile = 2048,
+// 32 KB; in tiles otherwise) and read as broadcasts.  Each thread owns
+// kPerThread source points per pass, so one 16-byte broadcast read of a proxy
+// feeds kPerThread distance evaluations.  It evaluates every (point, proxy)
+// pair, about 9.25 issued instructions each with FMA contraction disabled, and
+// sits near the card's instruction-issue ceiling for that count.
+//
+// Box-pruned search (node_bounds; the untrimmed lane and grid kernels).
+// ops/cuda_bounds.py::proxy_buckets orders the proxies by a Morton code
+// refined by median splits (a kd-tree's leaves) and cuts them into buckets of
+// kBucket with the exact min / max box of each bucket's members (the ragged
+// last bucket padded with copies of its own members, which cannot change a
+// minimum); cuda_bounds.source_order orders the source points the same way in
+// runs of 32 * kPrunedPerThread.  Each warp owns one such run, a compact patch
+// of the source (with no order, the points as they come).  Pass 1 evaluates
+// one member of every bucket, so every point holds a running minimum m that
+// is a real distance.  Pass 2 visits the buckets: each point computes the
+// lower bound box_d2 of its distance to the bucket's box, and the warp skips
+// the bucket when box_d2 >= m for all of its points; otherwise it scans the
+// bucket's members.  What bounds it: the pairs
+// evaluated (kBucket per scanned bucket and one per bucket in pass 1) plus
+// one box test per (point, bucket), about 19 issued instructions each; the
+// work now depends on the data.  Two points a thread (not four as in the
+// full scan) halve the patch a warp owns, so fewer buckets are scanned for
+// it, at half a shared-memory read more per pair.
+//
+// Why the pruned search is exact.  box_d2 takes gap = fmax(lo - q, q - hi, 0)
+// per axis and then (gx*gx + gy*gy) + gz*gz, with the same _rn operations in
+// the same order as sq_dist.  For every member p of the box and q < lo on an
+// axis, p - q >= lo - q > 0 in exact arithmetic; round-to-nearest is monotone,
+// so fl(p - q) >= fl(lo - q) >= 0, and the same holds on the other side by
+// sign symmetry (fl(q - p) = -fl(p - q)) and trivially (gap 0) inside.
+// Squares of non-negative values, and sums, keep the order when rounded, so
+// box_d2(q) <= sq_dist(p, q) as computed, for every member.  A skipped bucket
+// thus holds no value below the point's current m (itself above the final
+// minimum), and fminf over the pairs evaluated gives the same bits as the
+// full scan: a minimum does not depend on the order of its operands, so
+// sorting the proxies changes nothing either.
+//
+// wgmma and TMA do not apply: distances stay off the tensor cores under the
+// exact-distance rule of ROADMAP.md (the bounds must stay valid,
+// lb <= SSE <= ub, and the norm-expansion form cancels near zero).
 //
 // Rounding.  __fmul_rn/__fadd_rn/__fsub_rn in the order of the plain PyTorch
 // versions (fgoicp_tpu_torch/ops/cuda_bounds.py), the library built with
@@ -37,6 +71,13 @@ namespace fgoicp {
 constexpr float kBig = 1e10f;
 constexpr int kPTile = 2048;   // proxies staged at once (32 KB of float4)
 constexpr int kPerThread = 4;  // source points per thread per pass
+constexpr int kBucket = 32;    // proxies per bucket (cuda_bounds.BUCKET)
+// Source points per thread per pass of the pruned search: a warp owns
+// 32 * kPrunedPerThread consecutive entries of the order
+// (cuda_bounds.WARP_POINTS).
+constexpr int kPrunedPerThread = 2;
+constexpr int kTileBuckets = kPTile / kBucket;  // buckets staged at once
+constexpr int kRep = kBucket / 2;  // the member evaluated in pass 1
 
 __device__ __forceinline__ float sq_dist(const float4 c, float qx, float qy,
                                          float qz) {
@@ -47,7 +88,18 @@ __device__ __forceinline__ float sq_dist(const float4 c, float qx, float qy,
                    __fmul_rn(dz, dz));
 }
 
-// Proxies [p0, p0 + n) of prox [P, 3] into shared memory as float4.
+// A lower bound of sq_dist(p, q) as computed, for every p in the box
+// [lo, hi] (see "Why the pruned search is exact" above).
+__device__ __forceinline__ float box_d2(const float4 lo, const float4 hi,
+                                        float qx, float qy, float qz) {
+  const float gx = fmaxf(fmaxf(__fsub_rn(lo.x, qx), __fsub_rn(qx, hi.x)), 0.f);
+  const float gy = fmaxf(fmaxf(__fsub_rn(lo.y, qy), __fsub_rn(qy, hi.y)), 0.f);
+  const float gz = fmaxf(fmaxf(__fsub_rn(lo.z, qz), __fsub_rn(qz, hi.z)), 0.f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
+
+// Rows [p0, p0 + n) of a [*, 3] array into shared memory as float4.
 __device__ __forceinline__ void stage_proxies(const float* __restrict__ prox,
                                               int p0, int n, float4* sp) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
@@ -65,10 +117,24 @@ struct Node {
   float tx, ty, tz, gt;
 };
 
+// ut_i and lt_i of point i from its nearest-proxy value m.
+__device__ __forceinline__ void point_terms(const Node& nd,
+                                            const float* __restrict__ w,
+                                            float slack, int i, float m,
+                                            float& ut, float& lt) {
+  const float d = sqrtf(fmaxf(m, 0.f));
+  const float wi = w[i];
+  const float u = fmaxf(__fsub_rn(d, nd.gam_ub[i]), 0.f);
+  const float v = fmaxf(
+      __fsub_rn(__fsub_rn(__fsub_rn(d, slack), nd.gam_lb[i]), nd.gt), 0.f);
+  ut = __fmul_rn(wi, __fmul_rn(u, u));
+  lt = __fmul_rn(wi, __fmul_rn(v, v));
+}
+
 // Calls f(i, ut_i, lt_i) once for every source point i, on the thread that
-// owns it.  Every thread of the block must call it.  When P <= kPTile the
-// caller has staged all proxies in sp and synchronised; otherwise this
-// re-stages them, with barriers, once per pass and tile.
+// owns it, by the full scan.  Every thread of the block must call it.  When
+// P <= kPTile the caller has staged all proxies in sp and synchronised;
+// otherwise this re-stages them, with barriers, once per pass and tile.
 template <typename F>
 __device__ __forceinline__ void for_each_point_terms(
     const Node& nd, const float* __restrict__ w, float slack, int ns,
@@ -106,13 +172,9 @@ __device__ __forceinline__ void for_each_point_terms(
     for (int k = 0; k < kPerThread; ++k) {
       const int i = i0 + k * blockDim.x + threadIdx.x;
       if (i < ns) {
-        const float d = sqrtf(fmaxf(m[k], 0.f));
-        const float wi = w[i];
-        const float u = fmaxf(__fsub_rn(d, nd.gam_ub[i]), 0.f);
-        const float v = fmaxf(
-            __fsub_rn(__fsub_rn(__fsub_rn(d, slack), nd.gam_lb[i]), nd.gt),
-            0.f);
-        f(i, __fmul_rn(wi, __fmul_rn(u, u)), __fmul_rn(wi, __fmul_rn(v, v)));
+        float ut, lt;
+        point_terms(nd, w, slack, i, m[k], ut, lt);
+        f(i, ut, lt);
       }
     }
   }
@@ -153,29 +215,139 @@ struct Max {
   }
 };
 
-// lb, ub of one node: the weighted term sums over all source points.  Used
-// by the untrimmed lane and grid kernels (kThreads threads per block).
+// The bucketed proxies and the source order of the pruned search
+// (ops/cuda_bounds.py::proxy_buckets, source_order): rows [n * kBucket, 3] in
+// Morton order, boxes [n, 6] (lo xyz, hi xyz of each bucket's members), order
+// [ns] a permutation of the source points or null (the identity).
+struct Buckets {
+  const float* rows;
+  const float* boxes;
+  const int* order;
+  int n;
+};
+
+// Dynamic shared memory of node_bounds: the proxies and box corners of up to
+// kTileBuckets buckets, as float4.
+__host__ __device__ inline size_t bucket_smem_bytes(int n_buckets) {
+  const int tile = n_buckets < kTileBuckets ? n_buckets : kTileBuckets;
+  return static_cast<size_t>(tile) * (kBucket + 2) * sizeof(float4);
+}
+
+// Buckets [b0, b0 + n) into shared memory: members into sp, box corners
+// (lo, hi) into sb.
+__device__ __forceinline__ void stage_buckets(const Buckets& bk, int b0,
+                                              int n, float4* sp, float4* sb) {
+  stage_proxies(bk.rows, b0 * kBucket, n * kBucket, sp);
+  stage_proxies(bk.boxes, 2 * b0, 2 * n, sb);
+}
+
+// lb, ub of one node by the box-pruned search: the weighted term sums over
+// all source points.  Used by the untrimmed lane and grid kernels (kThreads
+// threads per block, bucket_smem_bytes(bk.n) of dynamic shared memory).
+// When counts is not null, counts[0] gets the (point, proxy) pairs evaluated
+// and counts[1] the (point, box) tests, over the valid points.
 template <int kThreads>
-__device__ __forceinline__ void node_bounds(const Node& nd,
-                                            const float* __restrict__ w,
-                                            float slack, int ns,
-                                            const float* __restrict__ prox,
-                                            int n_prox, float* lb_out,
-                                            float* ub_out) {
-  __shared__ float4 sp[kPTile];
+__device__ __forceinline__ void node_bounds(
+    const Node& nd, const float* __restrict__ w, float slack, int ns,
+    const Buckets& bk, float* lb_out, float* ub_out,
+    unsigned long long* counts) {
+  constexpr int kP = kPrunedPerThread;
+  extern __shared__ float4 smem[];
   __shared__ float red_lb[kThreads / 32];
   __shared__ float red_ub[kThreads / 32];
-  if (n_prox <= kPTile) {
-    stage_proxies(prox, 0, n_prox, sp);
+  const int tile = min(bk.n, kTileBuckets);
+  float4* sp = smem;                   // tile * kBucket members
+  float4* sb = smem + tile * kBucket;  // 2 * tile box corners
+  const bool staged = bk.n <= kTileBuckets;
+  if (staged) {
+    stage_buckets(bk, 0, bk.n, sp, sb);
     __syncthreads();
   }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   float acc_lb = 0.f;
   float acc_ub = 0.f;
-  for_each_point_terms(nd, w, slack, ns, prox, n_prox, sp,
-                       [&](int, float ut, float lt) {
-                         acc_ub = __fadd_rn(acc_ub, ut);
-                         acc_lb = __fadd_rn(acc_lb, lt);
-                       });
+  unsigned long long pairs = 0, tests = 0;
+  for (int i0 = 0; i0 < ns; i0 += kThreads * kP) {
+    int idx[kP];
+    bool valid[kP];
+    float qx[kP], qy[kP], qz[kP], m[kP];
+    int n_valid = 0;
+#pragma unroll
+    for (int k = 0; k < kP; ++k) {
+      // The warp's run: 32 * kP consecutive entries of the source order.
+      const int pos = i0 + (warp * kP + k) * 32 + lane;
+      valid[k] = pos < ns;
+      idx[k] = !valid[k] ? 0 : bk.order != nullptr ? bk.order[pos] : pos;
+      const float* b = nd.base + 3 * static_cast<size_t>(idx[k]);
+      qx[k] = __fadd_rn(b[0], nd.tx);
+      qy[k] = __fadd_rn(b[1], nd.ty);
+      qz[k] = __fadd_rn(b[2], nd.tz);
+      m[k] = kBig;
+      n_valid += __popc(__ballot_sync(0xffffffffu, valid[k]));
+    }
+    // Pass 1: one member of every bucket.
+    for (int b = 0; b < bk.n; ++b) {
+      float4 c;
+      if (staged) {
+        c = sp[b * kBucket + kRep];
+      } else {
+        const float* r =
+            bk.rows + 3 * (static_cast<size_t>(b) * kBucket + kRep);
+        c = make_float4(__ldg(r), __ldg(r + 1), __ldg(r + 2), 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kP; ++k) {
+        m[k] = fminf(m[k], sq_dist(c, qx[k], qy[k], qz[k]));
+      }
+    }
+    // Pass 2: the buckets whose box may hold a value below m.
+    int scanned = 0;
+    for (int b0 = 0; b0 < bk.n; b0 += kTileBuckets) {
+      const int nb = min(kTileBuckets, bk.n - b0);
+      if (!staged) {
+        __syncthreads();
+        stage_buckets(bk, b0, nb, sp, sb);
+        __syncthreads();
+      }
+      for (int b = 0; b < nb; ++b) {
+        const float4 lo = sb[2 * b];
+        const float4 hi = sb[2 * b + 1];
+        bool need = false;
+#pragma unroll
+        for (int k = 0; k < kP; ++k) {
+          need |= valid[k] && box_d2(lo, hi, qx[k], qy[k], qz[k]) < m[k];
+        }
+        if (!__any_sync(0xffffffffu, need)) continue;
+        ++scanned;
+        const float4* c = sp + b * kBucket;
+#pragma unroll 8
+        for (int j = 0; j < kBucket; ++j) {
+          const float4 cj = c[j];
+#pragma unroll
+          for (int k = 0; k < kP; ++k) {
+            m[k] = fminf(m[k], sq_dist(cj, qx[k], qy[k], qz[k]));
+          }
+        }
+      }
+    }
+    pairs += static_cast<unsigned long long>(n_valid) *
+             (bk.n + scanned * kBucket);
+    tests += static_cast<unsigned long long>(n_valid) * bk.n;
+#pragma unroll
+    for (int k = 0; k < kP; ++k) {
+      if (valid[k]) {
+        float ut, lt;
+        point_terms(nd, w, slack, idx[k], m[k], ut, lt);
+        acc_ub = __fadd_rn(acc_ub, ut);
+        acc_lb = __fadd_rn(acc_lb, lt);
+      }
+    }
+  }
+  if (counts != nullptr && lane == 0) {
+    atomicAdd(counts, pairs);
+    atomicAdd(counts + 1, tests);
+  }
   block_all_reduce2(acc_lb, acc_ub, red_lb, red_ub, Sum());
   if (threadIdx.x == 0) {
     *lb_out = acc_lb;

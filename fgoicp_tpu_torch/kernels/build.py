@@ -46,14 +46,14 @@ _SIGNATURES = {
     "fgoicp_nn_argmin": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # (queries, points, M, T, splits, chunk, d2_out, stream)
     "fgoicp_nn_min": (_P, _P, _I, _I, _I, _I, _P, _P),
-    # (base, gids, t, proxies, gam_ub, gam_lb, gam_t, w, slack,
-    #  G, ns, P, L, lb_out, ub_out, stream)
-    "fgoicp_bounds_lanes": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
-                            _I, _I, _I, _I, _P, _P, _P),
-    # (base, t_centers, proxies, gam_ub, gam_lb, gam_t, w, slack,
-    #  G, B, ns, P, lb_out, ub_out, stream)
-    "fgoicp_bounds_grid": (_P, _P, _P, _P, _P, _P, _P, _F,
-                           _I, _I, _I, _I, _P, _P, _P),
+    # (base, gids, t, rows, boxes, order, gam_ub, gam_lb, gam_t, w, slack,
+    #  G, ns, n_buckets, L, counts, lb_out, ub_out, stream)
+    "fgoicp_bounds_lanes": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                            _I, _I, _I, _I, _P, _P, _P, _P),
+    # (base, t_centers, rows, boxes, order, gam_ub, gam_lb, gam_t, w, slack,
+    #  G, B, ns, n_buckets, counts, lb_out, ub_out, stream)
+    "fgoicp_bounds_grid": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                           _I, _I, _I, _I, _P, _P, _P, _P),
     # (ns, P, int* fits)
     "fgoicp_bounds_lanes_trimmed_fits": (_I, _I, ctypes.POINTER(_I)),
     # (base, gids, t, proxies, gam_ub, gam_lb, gam_t, w, slack,

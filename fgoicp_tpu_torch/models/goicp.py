@@ -57,6 +57,7 @@ from ..config import Config, EngineConfig
 from ..io import load_cloud
 from ..ops import bounds as bounds_ops
 from ..ops import coreset as coreset_ops
+from ..ops import cuda_bounds
 from ..ops import distance_field as df_ops
 from ..ops import frontier as frontier_ops
 from ..ops import geometry as geo
@@ -254,6 +255,18 @@ class GoICP:
                 self.pcs, size=src_k, seed=e.seed + 2)
             log.debug(f"Source clusters: {src_k} reps, max radius "
                       f"{float(torch.max(self.src_clusters.deltas)):.4f}")
+
+        # The order in which the untrimmed proxy bound kernels' warps take
+        # the source points the frontier bounds (the clusters on the pooled
+        # path when there are any, else the full source): fixed for the
+        # engine, so built once here, not in every kernel call.
+        self._point_order = None
+        if isinstance(self.backend, bounds_ops.ProxyBackend) \
+                and self.trim_keep is None:
+            src = self.pcs
+            if e.frontier_mode == "pooled" and self.src_clusters is not None:
+                src = self.src_clusters.reps
+            self._point_order = cuda_bounds.source_order(src)
 
         # Incumbent (runtime state, fgoicp.hpp:61-64).
         self.best_sse = BIG
@@ -499,7 +512,7 @@ class GoICP:
                 trim_keep=self.trim_keep, point_weights=pw, point_deltas=pd,
                 err_share_from=self._share,
                 trim_ns=(self.ns if self.trim_keep is not None else None),
-                pool_update=e.pool_update)
+                pool_update=e.pool_update, point_order=self._point_order)
         else:
             # The grouped scheduler bounds the full source, never clusters.
             st = frontier_ops.bnb_r3_batched(
@@ -507,7 +520,7 @@ class GoICP:
                 group_active=act2, min_span=e.translation_min_span,
                 batch=e.translation_batch, capacity=e.frontier_capacity,
                 ref_compat_gamma=e.ref_compat_gamma,
-                trim_keep=self.trim_keep)
+                trim_keep=self.trim_keep, point_order=self._point_order)
 
         # Rotation lb = the lb-pass result: min(achieved, pruning incumbent)
         # keeps the threshold-slack guarantee when twin err-sharing ends a

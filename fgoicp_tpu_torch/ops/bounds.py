@@ -28,6 +28,7 @@ member-level trim is `reduce_clustered_trimmed`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
@@ -46,6 +47,12 @@ class ProxyBackend:
     (`eps_rank`, for reduced-precision matmul ranking) has no counterpart:
     the lower-bound slack is the covering radius alone."""
     coreset: coreset_ops.ProxyCoreset
+
+    @functools.cached_property
+    def buckets(self) -> cuda_bounds.ProxyBuckets:
+        """The coreset's points as the untrimmed bound kernels search them
+        (`cuda_bounds.proxy_buckets`), built on first use."""
+        return cuda_bounds.proxy_buckets(self.coreset.points.contiguous())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,7 +270,7 @@ def evaluate_bounds(backend: Backend, pcs: torch.Tensor,
                     ref_compat_gamma: bool = False,
                     trim_keep: Optional[int] = None, points_axis=None,
                     point_weights=None, point_deltas=None,
-                    trim_ns: Optional[int] = None):
+                    trim_ns: Optional[int] = None, point_order=None):
     """lb, ub [G, B] for a grid of (rotation group, translation node)s.
 
     pcs [ns, 3]; R [G, 3, 3]; rot_spans [G]; fix_rot [G] bool (gamma_r off);
@@ -274,7 +281,8 @@ def evaluate_bounds(backend: Backend, pcs: torch.Tensor,
     and trim_ns).  Untrimmed proxy nodes go through the fused grid kernel
     (`cuda_bounds.fused_bounds`); trimmed ones through the nearest-proxy
     kernel and the torch reductions, and LUT nodes through the field
-    lookups and the torch reductions, as the JAX package does."""
+    lookups and the torch reductions, as the JAX package does.
+    point_order: the grid kernel's `cuda_bounds.source_order` of pcs."""
     _no_points_axis(points_axis)
     clustered_trim = trim_keep is not None and point_deltas is not None
     if clustered_trim and (point_weights is None or trim_ns is None):
@@ -291,12 +299,12 @@ def evaluate_bounds(backend: Backend, pcs: torch.Tensor,
     base = torch.einsum("grc,nc->gnr", R, pcs)                  # [G, ns, 3]
     if trim_keep is None and isinstance(backend, ProxyBackend):
         lb, ub = cuda_bounds.fused_bounds(
-            base.contiguous(), t_centers.contiguous(),
-            backend.coreset.points.contiguous(), gam_ub.contiguous(),
+            base.contiguous(), t_centers.contiguous(), backend.buckets,
+            gam_ub.contiguous(),
             gam_t.contiguous(), float(backend.coreset.eps),
             point_weights=(None if point_weights is None
                            else point_weights.contiguous()),
-            gam_lb=gam_lb.contiguous())
+            gam_lb=gam_lb.contiguous(), point_order=point_order)
     else:
         q = base[:, None, :, :] + t_centers[:, :, None, :]      # [G, B, ns, 3]
         lb_pt, ub_pt = point_terms(backend, q, gam_ub[:, None, :],

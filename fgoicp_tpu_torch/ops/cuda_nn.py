@@ -49,12 +49,13 @@ _PLAIN_BLOCK = 1 << 24
 
 def check_f32(name: str, **tensors) -> torch.device:
     """Common argument checks of the kernel wrappers: float32 (int32 for
-    `gids`), contiguous, all on one device.  Returns that device."""
+    `gids` and `order`), contiguous, all on one device.  Returns that
+    device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
     for key, t in tensors.items():
-        want = torch.int32 if key == "gids" else torch.float32
+        want = torch.int32 if key in ("gids", "order") else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():

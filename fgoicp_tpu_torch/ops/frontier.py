@@ -77,12 +77,14 @@ def bnb_r3_batched(backend: bounds_ops.Backend, pcs: torch.Tensor,
                    ref_compat_gamma: bool = False,
                    trim_keep: Optional[int] = None, points_axis=None,
                    lockstep_axes=(), point_weights=None,
-                   trim_ns: Optional[int] = None) -> R3State:
+                   trim_ns: Optional[int] = None,
+                   point_order=None) -> R3State:
     """Run G translation BnB searches in lockstep.
 
     pcs [ns, 3] source; R [G, 3, 3]; rot_spans [G]; fix_rot [G] bool
     (True = gamma_r off); best_sse / sse_threshold Python floats;
-    group_active [G] bool.  Returns the final R3State."""
+    group_active [G] bool; point_order the grid kernel's
+    `cuda_bounds.source_order` of pcs.  Returns the final R3State."""
     if points_axis is not None or lockstep_axes:
         raise NotImplementedError(
             "sharded grouped BnB (points_axis / lockstep_axes) is ROADMAP "
@@ -123,7 +125,7 @@ def bnb_r3_batched(backend: bounds_ops.Backend, pcs: torch.Tensor,
             backend, pcs, R, rot_spans, fix_rot, cand_c, cand_s,
             node_mask=lane_valid, ref_compat_gamma=ref_compat_gamma,
             trim_keep=trim_keep, point_weights=point_weights,
-            trim_ns=trim_ns)
+            trim_ns=trim_ns, point_order=point_order)
 
         # Incumbent update from the batch min ub (fgoicp.cpp:139-145).
         batch_min, batch_arg = torch.min(ub_e, dim=-1)          # first index

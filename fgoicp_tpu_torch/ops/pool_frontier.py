@@ -85,7 +85,8 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
                   trim_keep: Optional[int] = None,
                   point_weights=None, point_deltas=None,
                   err_share_from=None, pool_update: str = "sort",
-                  trim_ns: Optional[int] = None, **unported) -> PoolState:
+                  trim_ns: Optional[int] = None, point_order=None,
+                  **unported) -> PoolState:
     """Pool-scheduled inner BnB for G rotation groups.
 
     pcs [ns, 3] (search source points or cluster representatives),
@@ -96,7 +97,8 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
     (-1 = none) — the engine points each gamma-relaxed lb-pass group at its
     fixed-rotation twin.  trim_keep / trim_ns: keep the trim_keep smallest
     of trim_ns member terms (trim_ns defaults to ns; with point_deltas it
-    is the global member count).  Returns the final PoolState.
+    is the global member count).  point_order: the untrimmed lane kernel's
+    `cuda_bounds.source_order` of pcs.  Returns the final PoolState.
     """
     if unported:
         raise NotImplementedError(
@@ -196,9 +198,10 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
                 point_weights=point_weights, gam_lb=gam_lb)
         else:
             lb_e, ub_e = cuda_bounds.fused_bounds_lanes(
-                base, pop_gid.to(torch.int32), pop_c.contiguous(), proxies,
-                gam_ub, gam_t_l.contiguous(), slack,
-                point_weights=point_weights, gam_lb=gam_lb)
+                base, pop_gid.to(torch.int32), pop_c.contiguous(),
+                backend.buckets, gam_ub, gam_t_l.contiguous(), slack,
+                point_weights=point_weights, gam_lb=gam_lb,
+                point_order=point_order)
         lb_e = torch.where(lane_valid, lb_e, BIG)
         ub_e = torch.where(lane_valid, ub_e, BIG)
 
