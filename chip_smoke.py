@@ -17,20 +17,24 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      published peaks; for the NN kernels also the instruction-issue
      ceiling), one PyTorch library call where one computes the same function,
      and, for the trimmed lanes, the unfused path (nearest-proxy kernel plus
-     the torch bisection bracket); the two box-pruned bound kernels
-     (`fused_bounds_lanes`, `fused_bounds`) also bit-equal to their plain
-     versions with one-hot point weights (each node's sum is then one
-     term) for every source point at the main paths' shapes and at edge
-     shapes (P in {1, 31, 33, 1024, 2049} x ns in {1, 129, 3000}, points
-     on box faces and corners, duplicated proxies split across buckets,
-     every d2 above BIG), with the (point, proxy) pairs and (point, box)
-     tests they evaluate from their counters, which set their bound (the
-     full scan's beside it), the issue ceiling of that work, and their time
-     given the backend's buckets and the source order, as GoICP gives
-     them, and given a bare proxies tensor; and `minplus_1d` bit-equal to
-     its plain version on seeded lines and on the three passes of the EDT
-     of the smoke target's field at lut_resolution 0.002, timed per full
-     pass (library none: no PyTorch call computes a min-plus product);
+     the torch bisection bracket); the three box-pruned bound kernels
+     (`fused_bounds_lanes`, `fused_bounds`, `fused_bounds_lanes_trimmed`)
+     also bit-equal to their plain versions with one-hot point weights
+     (each node's sum is then one term; the trimmed kernel at n_drop 0,
+     where lb and ub are functions of that term) for every source point at
+     the main paths' shapes and at edge shapes (P in {1, 31, 33, 1024, 2049} x ns in {1, 129,
+     3000}, points on box faces and corners, duplicated proxies split
+     across buckets, every d2 above BIG), with the (point, proxy) pairs and
+     (point, box) tests they evaluate from their counters, which set their
+     bound (the full scan's beside it), the issue ceiling of that work, and
+     their time given the backend's buckets and the source order, as GoICP
+     gives them, and given a bare proxies tensor; and `minplus_1d`
+     bit-equal to its plain version on seeded, constant, negative and
+     few-valued lines and on the three passes of the EDT of the smoke
+     target's field at lut_resolution 0.002, timed per full pass, with the
+     (line, i, j) triples it evaluates and the (warp, chunk) pairs it
+     stages from its counters, which set its bound (all triples' beside
+     it; library none: no PyTorch call computes a min-plus product);
   3. run the default main path, `register(Config)` on cuda, on a seeded
      asymmetric 18,000 / 3,000-point pair with a known pose: it must
      certify (last_certified_gap <= sse_threshold) and recover the pose
@@ -331,6 +335,21 @@ def one_hot_terms(torch, name, kernel, terms, points=None, plain=None):
                                  f"e.g. {bad[:8]}")
 
 
+def trimmed_one_hot(torch, terms):
+    """What the trimmed lane kernel returns at n_drop 0 with one-hot
+    weights at point j, from the plain version's terms (lt, ut) [nodes, ns]
+    (`plain_terms`): its bisection sees one term x and zeros, so lo becomes
+    0.5 * (lo + x) 26 times and hi stays x; ub ("under", threshold hi) is x
+    itself and lb ("over", threshold lo) is x where x <= lo, else lo.
+    Returned as (lb, ub) columns for `one_hot_terms`."""
+    from fgoicp_tpu_torch.ops import cuda_bounds
+    lt, ut = terms
+    lo = torch.zeros_like(lt)
+    for _ in range(cuda_bounds.BISECT_ITERS):
+        lo = 0.5 * (lo + lt)
+    return torch.where(lt <= lo, lt, lo), ut
+
+
 def picks_of(ns, n=6):
     """Point indices for one-hot checks: the first, the last and n drawn
     from their own seed (the other inputs' draws stay as they were)."""
@@ -348,11 +367,13 @@ def pair_counts(torch, launch):
 
 
 def bounds_edges(torch, dev):
-    """Phase 2, the two pruned bound kernels at edge shapes against their
+    """Phase 2, the three pruned bound kernels at edge shapes against their
     plain versions: lb / ub within rtol 2e-4 / atol 2e-5 with cluster-like
-    weights, and bit for bit with one-hot weights (at every point given the
-    proxies' buckets and the source order, at `picks_of` given a bare
-    proxies tensor and no order), on 8 lanes of 2 groups and a 2 x 4 grid:
+    weights (a 0/1 mask and n_drop 0.3 ns for the trimmed kernel), and bit
+    for bit with one-hot weights (at every point given the proxies' buckets
+    and the source order, at `picks_of` given a bare proxies tensor and no
+    order; the trimmed kernel at n_drop 0, `trimmed_one_hot`), on 8 lanes
+    of 2 groups and a 2 x 4 grid:
     P in {1, 31, 33, 1024, 2049} x ns in {1, 129, 3000} (seeded clouds);
     proxies on an 8^3 grid with queries on its nodes and face midpoints
     (points on box faces and corners); 33 copies of one proxy split across
@@ -390,13 +411,30 @@ def bounds_edges(torch, dev):
             gam_lb=gam_lb, point_order=po)
         grid_p = lambda wt: cuda_bounds.fused_bounds_plain(
             base, tc, prox, gam_ub, gam_lb, gt, slack, wt)
+        mask = f32(rng.uniform(size=(ns,)) < 0.8)
+        n_drop = int(round(0.3 * ns))
+        # The trimmed kernel: weights given, n_drop 0 (one-hot); None, the
+        # mask and n_drop.
+        trim = lambda wt, px=buckets, po=order: \
+            cuda_bounds.fused_bounds_lanes_trimmed(
+                base, gids, t_l, px, gam_ub, gam_t, slack,
+                n_drop if wt is None else 0,
+                point_weights=mask if wt is None else wt, gam_lb=gam_lb,
+                point_order=po)
+        trim_p = lambda wt: cuda_bounds.fused_bounds_lanes_trimmed_plain(
+            base, gids, t_l, prox, gam_ub, gam_lb, gam_t, slack,
+            mask if wt is None else wt, n_drop if wt is None else 0)
         grid_ids = torch.arange(2, dtype=torch.int32,
                                 device=dev).repeat_interleave(4)
-        for name, k, p, ids in (("fused_bounds_lanes", lanes, lanes_p, gids),
-                                ("fused_bounds", grid, grid_p, grid_ids)):
-            check_bounds(torch, f"{name} {label}", k(w), p(w))
+        for name, k, p, ids, wts in (
+                ("fused_bounds_lanes", lanes, lanes_p, gids, w),
+                ("fused_bounds", grid, grid_p, grid_ids, w),
+                ("fused_bounds_lanes_trimmed", trim, trim_p, gids, None)):
+            check_bounds(torch, f"{name} {label}", k(wts), p(wts))
             terms = plain_terms(torch, base, ids, t_l, prox, gam_ub, gam_lb,
                                 gam_t, slack)
+            if k is trim:
+                terms = trimmed_one_hot(torch, terms)
             one_hot_terms(torch, f"{name} {label}", k, terms, plain=p)
             one_hot_terms(torch, f"{name} {label} (bare proxies)",
                           lambda wt: k(wt, prox, None), terms,
@@ -425,7 +463,8 @@ def bounds_edges(torch, dev):
     check("[every d2 above BIG]", rng.uniform(-0.7, 0.7, size=(300, 3)) + 2e5,
           rng.uniform(-0.9, 0.9, size=(700, 3)),
           rng.uniform(-0.4, 0.4, size=(8, 3)))
-    say("kernel fused_bounds_lanes / fused_bounds edge cases: P [1, 31, 33, "
+    say("kernel fused_bounds_lanes / fused_bounds / fused_bounds_lanes_"
+        "trimmed edge cases: P [1, 31, 33, "
         "1024, 2049] x ns [1, 129, 3000], grid nodes and faces, 33 copies "
         "of one proxy, every d2 above BIG: lb / ub within rtol 2e-4 / atol "
         "2e-5, one-hot weights bit-equal to the plain versions at every "
@@ -531,10 +570,10 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
             f32(rng.uniform(0.05, 0.5, size=(lanes,))))
         return gids, t_l, gam_t
 
-    def trimmed_flops(lanes, ns):
-        # The nearest-proxy loop, plus 27 passes of compares over both
-        # term arrays (26 bisection counts and the kept sums).
-        return 8.0 * lanes * ns * n_prox + 2.0 * 27 * lanes * ns
+    def bisect_flops(lanes, ns):
+        # The trimmed kernel's 27 passes of compares over both term arrays
+        # (26 bisection counts and the kept sums).
+        return 2.0 * 27 * lanes * ns
 
     def lane_bytes(g, ns, lanes, n_buckets=None):
         # base, gam_ub, gam_lb, w; gids, t, gam_t; lb, ub; the proxies, or
@@ -543,41 +582,37 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
             n_buckets * (3 * cuda_bounds.BUCKET + 6) + ns)
         return 4.0 * (g * ns * 5 + ns + lanes * 7 + search)
 
-    def bounds_case(name, kernel, plain, reps, plain_reps, shape, flops,
-                    nbytes):
-        got, want = kernel(), plain()
-        err = check_bounds(torch, name, got, want)
-        ms = cuda_ms(torch, kernel, reps)
-        plain_ms = cuda_ms(torch, plain, plain_reps)
-        return report(name, shape, err, ms, plain_ms, flops, nbytes)
-
     proxy_backend = bounds_ops.ProxyBackend(coreset=proxy)
     buckets = proxy_backend.buckets
     n_buckets = buckets.boxes.shape[0]
 
     def pruned_case(name, shape, src, kernel, bare, plain, launch, terms,
-                    n_pairs, nbytes, reps, plain_reps):
+                    n_pairs, nbytes, reps, plain_reps, extra_flops=0.0):
         """A box-pruned kernel at a main-path shape.  kernel(w) is given the
         backend's buckets and the source's order, as GoICP gives them;
         bare(w) a bare proxies tensor and no order (buckets built per call);
         plain(w) its plain version; w [ns] point weights (None: the path's).
-        lb / ub against the plain version; one-hot weights bit for bit at
-        every source point through kernel, at `picks_of` through bare; the
-        pairs evaluated and box tests (launch(counts), the kernel's
-        counters), which set its bound (PAIR_FLOPS and BOX_FLOPS each at the
-        f32 peak, against the bytes), the full scan's bound beside it, and
-        their issue ceiling; times: the kernel, the plain version, the
-        buckets' and the order's builds, and bare."""
+        lb / ub against the plain version; one-hot weights bit for bit
+        against terms (the columns one-hot weights must give) at every
+        source point through kernel, at `picks_of` through bare; the pairs evaluated and box tests
+        (launch(counts), the kernel's counters), which set its bound
+        (PAIR_FLOPS and BOX_FLOPS each, plus extra_flops, at the f32 peak,
+        against the bytes), the full scan's bound beside it, and their issue
+        ceiling; times: the kernel, the plain version, the buckets' and the
+        order's builds, and bare."""
+        ns = terms[0].shape[1]
         err = check_bounds(torch, name, kernel(None), plain(None))
         one_hot_terms(torch, name, kernel, terms, plain=plain)
         one_hot_terms(torch, f"{name} (bare proxies)", bare, terms,
-                      picks_of(terms[0].shape[1]))
+                      picks_of(ns))
         pairs, tests = pair_counts(torch, launch)
         ms = cuda_ms(torch, lambda: kernel(None), reps)
         plain_ms = cuda_ms(torch, lambda: plain(None), plain_reps)
         case = report(name, shape, err, ms, plain_ms,
-                      PAIR_FLOPS * pairs + BOX_FLOPS * tests, nbytes)
-        case["full_scan_bound_ms"] = bound(PAIR_FLOPS * n_pairs, nbytes)[0]
+                      PAIR_FLOPS * pairs + BOX_FLOPS * tests + extra_flops,
+                      nbytes)
+        case["full_scan_bound_ms"] = bound(PAIR_FLOPS * n_pairs + extra_flops,
+                                           nbytes)[0]
         bucket_ms = cuda_ms(torch, lambda: cuda_bounds.proxy_buckets(prox),
                             reps)
         order_ms = cuda_ms(torch, lambda: cuda_bounds.source_order(src), reps)
@@ -590,8 +625,7 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
             f"{case['full_scan_bound_ms']!r} ms), issue ceiling {ceil_ms!r} "
             f"ms (full scan {full_ms!r} ms); buckets build {bucket_ms!r} ms, "
             f"source order build {order_ms!r} ms, wrapper given bare proxies "
-            f"{bare_ms!r} ms; one-hot weights bit-equal at all "
-            f"{terms[0].shape[1]} points")
+            f"{bare_ms!r} ms; one-hot weights bit-equal at all {ns} points")
         return case
 
     # fused_bounds_lanes: G = 256 groups (ub + lb pass of 128 children),
@@ -625,21 +659,49 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
     # fused_bounds_lanes_trimmed: the trimmed pooled lanes of the partial-
     # overlap pair, L = 1024 lanes over the full 10,000-point source,
     # n_drop = 3,000 (trim_fraction 0.3); and a few lanes of a 30,000-point
-    # source, whose terms exceed shared memory (scratch path).
+    # source, whose terms exceed shared memory (scratch path).  One-hot
+    # weights run at n_drop 0, where the kernel's lb / ub are functions of
+    # the one term (`trimmed_one_hot`); every other call at the path's
+    # n_drop with unit weights.
+    def trimmed_case(shape, src, base_, gids_, t_, gub_, glb_, gt_, n_drop_,
+                     reps):
+        ones_ = torch.ones(src.shape[0], dtype=torch.float32, device=dev)
+        order_ = cuda_bounds.source_order(src)
+        pick = lambda wt: (ones_, n_drop_) if wt is None else (wt, 0)
+        lanes_ = gids_.shape[0]
+
+        def kernel(wt, px=buckets, po=order_):
+            w_, k_ = pick(wt)
+            return cuda_bounds.fused_bounds_lanes_trimmed(
+                base_, gids_, t_, px, gub_, gt_, slack, k_, point_weights=w_,
+                gam_lb=glb_, point_order=po)
+
+        def plain(wt):
+            w_, k_ = pick(wt)
+            return cuda_bounds.fused_bounds_lanes_trimmed_plain(
+                base_, gids_, t_, prox, gub_, glb_, gt_, slack32, w_, k_)
+
+        case = pruned_case(
+            "fused_bounds_lanes_trimmed", shape, src, kernel,
+            lambda wt: kernel(wt, prox, None), plain,
+            lambda c: cuda_bounds._launch_lanes_trimmed(
+                base_, gids_, t_, gub_, glb_, gt_, ones_, slack32, n_drop_,
+                buckets, order_, c),
+            trimmed_one_hot(torch, plain_terms(
+                torch, base_, gids_, t_, prox, gub_, glb_, gt_, slack32)),
+            lanes_ * src.shape[0] * n_prox,
+            lane_bytes(base_.shape[0], src.shape[0], lanes_, n_buckets),
+            reps, 1, bisect_flops(lanes_, src.shape[0]))
+        return case, kernel
+
     ns5 = trim_src.shape[0]
     n_drop = int(round(0.3 * ns5))
     base5, gub5, glb5 = groups(g, trim_src)
     gids5, t5, gt5 = lanes_of(g, lanes)
-    ones5 = torch.ones(ns5, dtype=torch.float32, device=dev)
-    trimmed = lambda: cuda_bounds.fused_bounds_lanes_trimmed(
-        base5, gids5, t5, prox, gub5, gt5, slack, n_drop, gam_lb=glb5)
-    b5 = bounds_case(
-        "fused_bounds_lanes_trimmed", trimmed,
-        lambda: cuda_bounds.fused_bounds_lanes_trimmed_plain(
-            base5, gids5, t5, prox, gub5, glb5, gt5,
-            float(np.float32(slack)), ones5, n_drop),
-        10, 1, f"G{g} L{lanes} ns{ns5} P{n_prox} n_drop{n_drop}",
-        trimmed_flops(lanes, ns5), lane_bytes(g, ns5, lanes))
+    b5, trimmed5 = trimmed_case(
+        f"G{g} L{lanes} ns{ns5} P{n_prox} n_drop{n_drop}", trim_src, base5,
+        gids5, t5, gub5, glb5, gt5, n_drop, 10)
+    trimmed = lambda: trimmed5(None)
 
     def unfused():
         """The unfused trimmed lane path: the nearest-proxy kernel on all
@@ -677,18 +739,10 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
     src30 = torch.cat([trim_src, trim_src * 0.97, trim_src * 1.03])
     base6, gub6, glb6 = groups(8, src30)
     gids6, t6, gt6 = lanes_of(8, 32)
-    ones6 = torch.ones(src30.shape[0], dtype=torch.float32, device=dev)
     n_drop6 = int(round(0.3 * src30.shape[0]))
-    bounds_case(
-        "fused_bounds_lanes_trimmed",
-        lambda: cuda_bounds.fused_bounds_lanes_trimmed(
-            base6, gids6, t6, prox, gub6, gt6, slack, n_drop6, gam_lb=glb6),
-        lambda: cuda_bounds.fused_bounds_lanes_trimmed_plain(
-            base6, gids6, t6, prox, gub6, glb6, gt6,
-            float(np.float32(slack)), ones6, n_drop6),
-        5, 1, f"G8 L32 ns{src30.shape[0]} P{n_prox} n_drop{n_drop6} "
-              f"(terms in scratch)", trimmed_flops(32, src30.shape[0]),
-        lane_bytes(8, src30.shape[0], 32))
+    trimmed_case(f"G8 L32 ns{src30.shape[0]} P{n_prox} n_drop{n_drop6} "
+                 f"(terms in scratch)", src30, base6, gids6, t6, gub6, glb6,
+                 gt6, n_drop6, 5)
 
     # fused_bounds: the grouped scheduler's grid, G = 256 groups x B = 32
     # translation nodes over the full 3,000-point source.
@@ -738,13 +792,16 @@ def compare_kernels(torch, pct, pcs, trim_pct, trim_src):
 
 def compare_minplus(torch, norm, resolution=LUT_RESOLUTION):
     """Phase 2, `minplus_1d`: the kernel against its plain version, bit for
-    bit, on seeded random lines (some all BIG, as unseeded grid lines) and
-    on the three passes of the EDT of the smoke target's field at
-    lut_resolution 0.002, whose inputs are the seeded grid and the permuted
-    outputs of the passes before; kernel and plain times per full pass by
-    CUDA events, beside the bound (an add and a min per (line, i, j) at the
-    f32 peak, against one read and one write of the grid).  No PyTorch call
-    computes a min-plus product: library none.  Returns the JSON row."""
+    bit, on seeded random lines (every third all BIG, as unseeded grid
+    lines), constant, negative and few-valued lines, and on the three
+    passes of the EDT of the smoke target's field at lut_resolution 0.002,
+    whose inputs are the seeded grid and the permuted outputs of the passes
+    before; kernel and plain times per full pass by CUDA events, beside the
+    bound: an add and a min per (line, i, j) triple the kernel evaluated
+    (its counter; it skips triples that cannot win) at the f32 peak,
+    against one read and one write of the grid, with the bound of all
+    L n^2 triples beside it.  No PyTorch call computes a min-plus product:
+    library none.  Returns the JSON row."""
     from fgoicp_tpu_torch.ops import cuda_minplus
     from fgoicp_tpu_torch.ops import distance_field as df
 
@@ -765,8 +822,16 @@ def compare_minplus(torch, norm, resolution=LUT_RESOLUTION):
         g = rng.uniform(0.0, 4.0, size=(lines, n)).astype(np.float32)
         g[::3] = df.BIG
         bit_equal(f"minplus_1d [{lines}x{n}]", torch.from_numpy(g).to(dev))
+    for kind, g in (
+            ("constant", np.repeat(rng.uniform(0.0, 4.0, size=(1000, 1)),
+                                   333, axis=1)),
+            ("negative", rng.uniform(-4.0, 0.5, size=(1000, 333))),
+            ("few-valued", rng.choice([0.0, 0.25, 1.0], size=(1000, 333)))):
+        bit_equal(f"minplus_1d [1000x333] {kind}",
+                  torch.from_numpy(g.astype(np.float32)).to(dev))
     say("kernel minplus_1d [1x1], [7x2047], [1000x333] (every third line "
-        "BIG): bit-equal to the plain version")
+        "BIG), [1000x333] constant, negative and few-valued lines: "
+        "bit-equal to the plain version")
 
     dims = df.grid_dims(norm.target_bounds.cpu().numpy(), resolution)
     x, y, z = dims
@@ -774,19 +839,33 @@ def compare_minplus(torch, norm, resolution=LUT_RESOLUTION):
                       torch.tensor(resolution, device=dev), dims)
     say(f"kernel minplus_1d: the smoke target's field at lut_resolution "
         f"{resolution}: dims {dims}, {x * y * z} cells")
-    total = dict(ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, flops=0.0, full_flops=0.0,
+                 nbytes=0.0)
     for axis, (lines, n), perm in (("z", (x * y, z), (x, y, z)),
                                    ("y", (z * x, y), (z, x, y)),
                                    ("x", (y * z, x), (y, z, x))):
         g = f.reshape(lines, n)
         bit_equal(f"minplus_1d pass {axis} [{lines}x{n}]", g)
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        cuda_minplus._launch(g, resolution, counts)
+        triples, staged = (int(v) for v in counts.cpu())
         ms = cuda_ms(torch, lambda: kernel(g, resolution), 3)
         plain_ms = cuda_ms(torch, lambda: plain(g, resolution), 1)
-        flops, nbytes = 2.0 * lines * n * n, 8.0 * lines * n
+        flops, nbytes = 2.0 * triples, 8.0 * lines * n
+        full_flops = 2.0 * lines * n * n
         report("minplus_1d", f"pass {axis}, {lines}x{n}", 0.0, ms, plain_ms,
                flops, nbytes)
+        # (warp, chunk) visits: every chunk of every tile of every warp.
+        chunks = -(-lines // cuda_minplus.WARP_LINES) * -(
+            -n // cuda_minplus.CHUNK) * -(-n // cuda_minplus.TILE_OUT)
+        say(f"kernel minplus_1d pass {axis} pruning (kernel counters): "
+            f"{triples} of {lines * n * n} triples evaluated "
+            f"({triples / (lines * n * n)!r}), {staged} of {chunks} (warp, "
+            f"chunk) visits staged; bound of all triples "
+            f"{bound(full_flops, nbytes)[0]!r} ms, issue ceiling of the "
+            f"evaluated triples {2.0 * triples / INSTR_RATE * 1e3!r} ms")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("flops", flops),
-                       ("nbytes", nbytes)):
+                       ("full_flops", full_flops), ("nbytes", nbytes)):
             total[key] += v
         f = kernel(g, resolution).reshape(perm).permute(2, 0, 1).contiguous()
         del g
@@ -794,6 +873,8 @@ def compare_minplus(torch, norm, resolution=LUT_RESOLUTION):
     case = report("minplus_1d", f"EDT of the {dims} field, 3 passes", 0.0,
                   total["ms"], total["plain_ms"], total["flops"],
                   total["nbytes"])
+    case["full_scan_bound_ms"] = bound(total["full_flops"],
+                                       total["nbytes"])[0]
     return row("minplus_1d", "fgoicp_tpu_torch/csrc/minplus.cu",
                "fgoicp_tpu/ops/pallas_minplus.py:75", case)
 

@@ -25,20 +25,24 @@
 // equal in exact arithmetic and free of the cancellation of two large sums
 // where most of a lane's total is dropped (the plain version's `kept_sum`).
 //
-// Design.  One block per lane; it loads its own gids[l].  The proxies are
-// staged once per block in dynamic shared memory, and the lane's 2 * ns
-// terms are written beside them (80 KB at ns = 10,000, which needs
-// cudaFuncAttributeMaxDynamicSharedMemorySize above 48 KB).  Both bisections
-// run in one 26-iteration loop: per iteration one block-wide count for each
-// array (warp shuffles, then one value per warp through double-buffered
-// shared memory, so a single barrier per iteration), and every thread takes
-// the same exact integer counts, so all threads walk the same thresholds.
-// Where the terms and the proxies exceed what a block may hold (ns above
-// about 26k), the same kernel keeps the terms in an [L, 2, ns] scratch that
-// the wrapper allocates; the kernel never allocates.
+// Design.  One block per lane; it loads its own gids[l].  The nearest-proxy
+// search is bounds_terms.cuh's exact box-pruned one over the Morton-bucketed
+// proxies, shared with the untrimmed kernels: it hands each point's terms to
+// the thread that owns it, which writes them at the point's index into
+// dynamic shared memory beside the staged buckets (80 KB at ns = 10,000
+// plus 17 KB of buckets at P = 1,024: two 512-thread blocks per SM; the
+// size needs cudaFuncAttributeMaxDynamicSharedMemorySize above 48 KB).
+// Both bisections run in one 26-iteration loop: per iteration one block-wide
+// count for each array (warp shuffles, then one value per warp through
+// double-buffered shared memory, so a single barrier per iteration), and
+// every thread takes the same exact integer counts, so all threads walk the
+// same thresholds.  Where the terms and the buckets exceed what a block may
+// hold (ns above about 26k), the same kernel keeps the terms in an
+// [L, 2, ns] scratch that the wrapper allocates; the kernel never allocates.
 //
-// What bounds it on the card: f32 ALU work in the nearest-proxy loop, about
-// 8 flops per (source point, proxy) pair.  The bisection adds only about
+// What bounds it on the card: f32 ALU work in the search, the (point,
+// proxy) pairs that the pruning leaves (about 8 flops each) plus the (point,
+// box) tests, as in the untrimmed kernels.  The bisection adds about
 // 2 * 27 * ns compares per lane, read from shared memory; no [L, ns] term
 // tensor ever reaches device memory.
 //
@@ -46,25 +50,31 @@
 // (bounds_terms.cuh), the maximum and the counts are exact, and mid is
 // rounded as 0.5f * (lo + hi) in float32: the thresholds therefore equal the
 // plain version's (fgoicp_tpu_torch/ops/cuda_bounds.py) exactly, and only
-// the order of the kept sums differs.
+// the order of the kept sums differs.  The terms sit at their point's index
+// whatever order the search took, so the sums' order does not depend on the
+// proxies' buckets or the source order.
 
 #include "bounds_terms.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBisectIters = 26;
+// The kept sums run over i = t, t + kSumThreads, ... in threads t <
+// kSumThreads, then over the block: a fixed order whatever kThreads is.
+constexpr int kSumThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 bounds_lanes_trimmed_kernel(
     const float* __restrict__ base, const int* __restrict__ gids,
-    const float* __restrict__ t, const float* __restrict__ prox,
+    const float* __restrict__ t, fgoicp::Buckets bk,
     const float* __restrict__ gam_ub, const float* __restrict__ gam_lb,
     const float* __restrict__ gam_t, const float* __restrict__ w, float slack,
-    int n_groups, int ns, int n_prox, int n_drop, float* __restrict__ scratch,
-    float* __restrict__ lb_out, float* __restrict__ ub_out) {
-  extern __shared__ float4 dyn[];
+    int n_groups, int ns, int n_drop, float* __restrict__ scratch,
+    unsigned long long* counts, float* __restrict__ lb_out,
+    float* __restrict__ ub_out) {
+  extern __shared__ float4 smem[];
   __shared__ float red_f[2][kWarps];
   __shared__ int red_i[2][2][kWarps];
 
@@ -73,24 +83,22 @@ bounds_lanes_trimmed_kernel(
   const fgoicp::Node nd{base + g * ns * 3, gam_ub + g * ns, gam_lb + g * ns,
                         t[3 * lane + 0], t[3 * lane + 1], t[3 * lane + 2],
                         gam_t[lane]};
-  float4* sp = dyn;
+  // The terms: after the search's staged buckets, or in the scratch.
   float* ut_s = scratch != nullptr
                     ? scratch + static_cast<size_t>(lane) * 2 * ns
-                    : reinterpret_cast<float*>(dyn + min(n_prox, fgoicp::kPTile));
+                    : reinterpret_cast<float*>(
+                          reinterpret_cast<char*>(smem) +
+                          fgoicp::bucket_smem_bytes(bk.n));
   float* lt_s = ut_s + ns;
 
-  if (n_prox <= fgoicp::kPTile) {
-    fgoicp::stage_proxies(prox, 0, n_prox, sp);
-    __syncthreads();
-  }
   float hi_u = 0.f, hi_l = 0.f;
-  fgoicp::for_each_point_terms(nd, w, slack, ns, prox, n_prox, sp,
-                               [&](int i, float ut, float lt) {
-                                 ut_s[i] = ut;
-                                 lt_s[i] = lt;
-                                 hi_u = fmaxf(hi_u, ut);
-                                 hi_l = fmaxf(hi_l, lt);
-                               });
+  fgoicp::for_each_point_pruned<kThreads>(
+      nd, w, slack, ns, bk, counts, [&](int i, float ut, float lt) {
+        ut_s[i] = ut;
+        lt_s[i] = lt;
+        hi_u = fmaxf(hi_u, ut);
+        hi_l = fmaxf(hi_l, lt);
+      });
   // Makes every thread's terms visible (shared or scratch) to the block.
   __syncthreads();
   fgoicp::block_all_reduce2(hi_u, hi_l, red_f[0], red_f[1], fgoicp::Max());
@@ -115,7 +123,8 @@ bounds_lanes_trimmed_kernel(
   // The kept terms are summed directly (see the header).
   float s_u = 0.f, s_l = 0.f;
   int c_u = 0, c_l = 0;
-  for (int i = threadIdx.x; i < ns; i += kThreads) {
+  for (int i = threadIdx.x; threadIdx.x < kSumThreads && i < ns;
+       i += kSumThreads) {
     const float xu = ut_s[i];
     const float xl = lt_s[i];
     if (xu <= hi_u) s_u = __fadd_rn(s_u, xu); else ++c_u;
@@ -132,11 +141,6 @@ bounds_lanes_trimmed_kernel(
     lb_out[lane] = __fsub_rn(
         s_l, __fmul_rn(static_cast<float>(n_drop - c_l), lo_l));
   }
-}
-
-size_t proxy_bytes(int n_prox) {
-  const int staged = n_prox < fgoicp::kPTile ? n_prox : fgoicp::kPTile;
-  return sizeof(float4) * static_cast<size_t>(staged);
 }
 
 // Dynamic shared memory a block may use on the current device.
@@ -158,29 +162,34 @@ int dynamic_smem_limit(size_t* limit) {
 extern "C" {
 
 // Sets *fits to 1 when a lane's 2 * ns terms fit in shared memory beside the
-// staged proxies (no scratch needed), else 0.
-int fgoicp_bounds_lanes_trimmed_fits(int ns, int n_prox, int* fits) {
+// staged buckets (no scratch needed), else 0.
+int fgoicp_bounds_lanes_trimmed_fits(int ns, int n_buckets, int* fits) {
   size_t limit = 0;
   const int err = dynamic_smem_limit(&limit);
-  *fits = proxy_bytes(n_prox) + sizeof(float) * 2 * static_cast<size_t>(ns)
-          <= limit;
+  *fits = fgoicp::bucket_smem_bytes(n_buckets) +
+              sizeof(float) * 2 * static_cast<size_t>(ns) <= limit;
   return err;
 }
 
-// base [G, ns, 3], gids [L] i32, t [L, 3], proxies [P, 3], gam_ub/gam_lb
-// [G, ns], gam_t [L], w [ns] 0/1 (f32 unless noted, contiguous, on the device
-// of `stream`); scratch [L, 2, ns] f32 or null when the terms fit in shared
-// memory (fgoicp_bounds_lanes_trimmed_fits) -> lb_out, ub_out [L] f32.
+// base [G, ns, 3], gids [L] i32, t [L, 3], rows [n_buckets * 32, 3] and
+// boxes [n_buckets, 6] (the bucketed proxies), order [ns] i32 (the source
+// order, or null), gam_ub/gam_lb [G, ns], gam_t [L], w [ns] 0/1 (f32 unless
+// noted, contiguous, on the device of `stream`); scratch [L, 2, ns] f32 or
+// null when the terms fit in shared memory (fgoicp_bounds_lanes_trimmed_fits)
+// -> lb_out, ub_out [L] f32.  counts (u64 [2] or null) gets the pairs
+// evaluated and the box tests added.
 int fgoicp_bounds_lanes_trimmed(const float* base, const int* gids,
-                                const float* t, const float* proxies,
+                                const float* t, const float* rows,
+                                const float* boxes, const int* order,
                                 const float* gam_ub, const float* gam_lb,
                                 const float* gam_t, const float* w, float slack,
-                                int n_groups, int ns, int n_prox, int lanes,
-                                int n_drop, float* scratch, float* lb_out,
+                                int n_groups, int ns, int n_buckets, int lanes,
+                                int n_drop, float* scratch,
+                                unsigned long long* counts, float* lb_out,
                                 float* ub_out, cudaStream_t stream) {
   if (lanes <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem =
-      proxy_bytes(n_prox) +
+      fgoicp::bucket_smem_bytes(n_buckets) +
       (scratch != nullptr ? 0 : sizeof(float) * 2 * static_cast<size_t>(ns));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -188,9 +197,10 @@ int fgoicp_bounds_lanes_trimmed(const float* base, const int* gids,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const fgoicp::Buckets bk{rows, boxes, order, n_buckets};
   bounds_lanes_trimmed_kernel<<<lanes, kThreads, smem, stream>>>(
-      base, gids, t, proxies, gam_ub, gam_lb, gam_t, w, slack, n_groups, ns,
-      n_prox, n_drop, scratch, lb_out, ub_out);
+      base, gids, t, bk, gam_ub, gam_lb, gam_t, w, slack, n_groups, ns,
+      n_drop, scratch, counts, lb_out, ub_out);
   return static_cast<int>(cudaGetLastError());
 }
 

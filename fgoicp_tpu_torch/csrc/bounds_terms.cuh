@@ -12,17 +12,8 @@
 // fgoicp_tpu/ops/pallas_bounds.py (_kernel, _lane_kernel,
 // _lane_kernel_trimmed).
 //
-// Two searches for m, both one block per node:
-//
-// Full scan (for_each_point_terms; the trimmed lane kernel).  The proxies
-// are staged in shared memory as float4 (all at once when P <= kPTile = 2048,
-// 32 KB; in tiles otherwise) and read as broadcasts.  Each thread owns
-// kPerThread source points per pass, so one 16-byte broadcast read of a proxy
-// feeds kPerThread distance evaluations.  It evaluates every (point, proxy)
-// pair, about 9.25 issued instructions each with FMA contraction disabled, and
-// sits near the card's instruction-issue ceiling for that count.
-//
-// Box-pruned search (node_bounds; the untrimmed lane and grid kernels).
+// The search for m: one block per node, an exact box-pruned search
+// (for_each_point_pruned), shared by all three kernels.
 // ops/cuda_bounds.py::proxy_buckets orders the proxies by a Morton code
 // refined by median splits (a kd-tree's leaves) and cuts them into buckets of
 // kBucket with the exact min / max box of each bucket's members (the ragged
@@ -37,9 +28,9 @@
 // bucket's members.  What bounds it: the pairs
 // evaluated (kBucket per scanned bucket and one per bucket in pass 1) plus
 // one box test per (point, bucket), about 19 issued instructions each; the
-// work now depends on the data.  Two points a thread (not four as in the
-// full scan) halve the patch a warp owns, so fewer buckets are scanned for
-// it, at half a shared-memory read more per pair.
+// work depends on the data.  Two points a thread halve the patch a warp
+// owns, so fewer buckets are scanned for it.  The untrimmed kernels sum the
+// terms (node_bounds); the trimmed one stores them for its bisection.
 //
 // Why the pruned search is exact.  box_d2 takes gap = fmax(lo - q, q - hi, 0)
 // per axis and then (gx*gx + gy*gy) + gz*gz, with the same _rn operations in
@@ -69,14 +60,12 @@
 namespace fgoicp {
 
 constexpr float kBig = 1e10f;
-constexpr int kPTile = 2048;   // proxies staged at once (32 KB of float4)
-constexpr int kPerThread = 4;  // source points per thread per pass
 constexpr int kBucket = 32;    // proxies per bucket (cuda_bounds.BUCKET)
 // Source points per thread per pass of the pruned search: a warp owns
 // 32 * kPrunedPerThread consecutive entries of the order
 // (cuda_bounds.WARP_POINTS).
 constexpr int kPrunedPerThread = 2;
-constexpr int kTileBuckets = kPTile / kBucket;  // buckets staged at once
+constexpr int kTileBuckets = 64;  // buckets staged at once (34 KB of float4)
 constexpr int kRep = kBucket / 2;  // the member evaluated in pass 1
 
 __device__ __forceinline__ float sq_dist(const float4 c, float qx, float qy,
@@ -129,55 +118,6 @@ __device__ __forceinline__ void point_terms(const Node& nd,
       __fsub_rn(__fsub_rn(__fsub_rn(d, slack), nd.gam_lb[i]), nd.gt), 0.f);
   ut = __fmul_rn(wi, __fmul_rn(u, u));
   lt = __fmul_rn(wi, __fmul_rn(v, v));
-}
-
-// Calls f(i, ut_i, lt_i) once for every source point i, on the thread that
-// owns it, by the full scan.  Every thread of the block must call it.  When
-// P <= kPTile the caller has staged all proxies in sp and synchronised;
-// otherwise this re-stages them, with barriers, once per pass and tile.
-template <typename F>
-__device__ __forceinline__ void for_each_point_terms(
-    const Node& nd, const float* __restrict__ w, float slack, int ns,
-    const float* __restrict__ prox, int n_prox, float4* sp, F f) {
-  const int stride = blockDim.x * kPerThread;
-  for (int i0 = 0; i0 < ns; i0 += stride) {
-    float qx[kPerThread], qy[kPerThread], qz[kPerThread], m[kPerThread];
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = i0 + k * blockDim.x + threadIdx.x;
-      qx[k] = qy[k] = qz[k] = 0.f;
-      if (i < ns) {
-        qx[k] = __fadd_rn(nd.base[3 * i + 0], nd.tx);
-        qy[k] = __fadd_rn(nd.base[3 * i + 1], nd.ty);
-        qz[k] = __fadd_rn(nd.base[3 * i + 2], nd.tz);
-      }
-      m[k] = kBig;
-    }
-    for (int p0 = 0; p0 < n_prox; p0 += kPTile) {
-      const int n = min(kPTile, n_prox - p0);
-      if (n_prox > kPTile) {
-        __syncthreads();
-        stage_proxies(prox, p0, n, sp);
-        __syncthreads();
-      }
-      for (int j = 0; j < n; ++j) {
-        const float4 c = sp[j];
-#pragma unroll
-        for (int k = 0; k < kPerThread; ++k) {
-          m[k] = fminf(m[k], sq_dist(c, qx[k], qy[k], qz[k]));
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = i0 + k * blockDim.x + threadIdx.x;
-      if (i < ns) {
-        float ut, lt;
-        point_terms(nd, w, slack, i, m[k], ut, lt);
-        f(i, ut, lt);
-      }
-    }
-  }
 }
 
 // Reduces a and b over the block with `op`; every thread gets both results.
@@ -241,20 +181,19 @@ __device__ __forceinline__ void stage_buckets(const Buckets& bk, int b0,
   stage_proxies(bk.boxes, 2 * b0, 2 * n, sb);
 }
 
-// lb, ub of one node by the box-pruned search: the weighted term sums over
-// all source points.  Used by the untrimmed lane and grid kernels (kThreads
-// threads per block, bucket_smem_bytes(bk.n) of dynamic shared memory).
-// When counts is not null, counts[0] gets the (point, proxy) pairs evaluated
-// and counts[1] the (point, box) tests, over the valid points.
-template <int kThreads>
-__device__ __forceinline__ void node_bounds(
+// Calls f(i, ut_i, lt_i) once for every source point i of one node, on the
+// thread that owns it, by the box-pruned search; each thread calls f in the
+// order of its points in the source order.  Every thread of the block
+// (kThreads) must call it, with bucket_smem_bytes(bk.n) of dynamic shared
+// memory from offset 0; it synchronises the block.  When counts is not
+// null, counts[0] gets the (point, proxy) pairs evaluated and counts[1] the
+// (point, box) tests, over the valid points.
+template <int kThreads, typename F>
+__device__ __forceinline__ void for_each_point_pruned(
     const Node& nd, const float* __restrict__ w, float slack, int ns,
-    const Buckets& bk, float* lb_out, float* ub_out,
-    unsigned long long* counts) {
+    const Buckets& bk, unsigned long long* counts, F f) {
   constexpr int kP = kPrunedPerThread;
   extern __shared__ float4 smem[];
-  __shared__ float red_lb[kThreads / 32];
-  __shared__ float red_ub[kThreads / 32];
   const int tile = min(bk.n, kTileBuckets);
   float4* sp = smem;                   // tile * kBucket members
   float4* sb = smem + tile * kBucket;  // 2 * tile box corners
@@ -265,8 +204,6 @@ __device__ __forceinline__ void node_bounds(
   }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float acc_lb = 0.f;
-  float acc_ub = 0.f;
   unsigned long long pairs = 0, tests = 0;
   for (int i0 = 0; i0 < ns; i0 += kThreads * kP) {
     int idx[kP];
@@ -339,8 +276,7 @@ __device__ __forceinline__ void node_bounds(
       if (valid[k]) {
         float ut, lt;
         point_terms(nd, w, slack, idx[k], m[k], ut, lt);
-        acc_ub = __fadd_rn(acc_ub, ut);
-        acc_lb = __fadd_rn(acc_lb, lt);
+        f(idx[k], ut, lt);
       }
     }
   }
@@ -348,6 +284,25 @@ __device__ __forceinline__ void node_bounds(
     atomicAdd(counts, pairs);
     atomicAdd(counts + 1, tests);
   }
+}
+
+// lb, ub of one node: the weighted term sums over all source points, each
+// thread's in its points' source order, then over the block.  Used by the
+// untrimmed lane and grid kernels; arguments as for_each_point_pruned.
+template <int kThreads>
+__device__ __forceinline__ void node_bounds(
+    const Node& nd, const float* __restrict__ w, float slack, int ns,
+    const Buckets& bk, float* lb_out, float* ub_out,
+    unsigned long long* counts) {
+  __shared__ float red_lb[kThreads / 32];
+  __shared__ float red_ub[kThreads / 32];
+  float acc_lb = 0.f;
+  float acc_ub = 0.f;
+  for_each_point_pruned<kThreads>(nd, w, slack, ns, bk, counts,
+                                  [&](int, float ut, float lt) {
+                                    acc_ub = __fadd_rn(acc_ub, ut);
+                                    acc_lb = __fadd_rn(acc_lb, lt);
+                                  });
   block_all_reduce2(acc_lb, acc_ub, red_lb, red_ub, Sum());
   if (threadIdx.x == 0) {
     *lb_out = acc_lb;

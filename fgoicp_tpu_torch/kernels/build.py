@@ -54,14 +54,15 @@ _SIGNATURES = {
     #  G, B, ns, n_buckets, counts, lb_out, ub_out, stream)
     "fgoicp_bounds_grid": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                            _I, _I, _I, _I, _P, _P, _P, _P),
-    # (ns, P, int* fits)
+    # (ns, n_buckets, int* fits)
     "fgoicp_bounds_lanes_trimmed_fits": (_I, _I, ctypes.POINTER(_I)),
-    # (base, gids, t, proxies, gam_ub, gam_lb, gam_t, w, slack,
-    #  G, ns, P, L, n_drop, scratch, lb_out, ub_out, stream)
-    "fgoicp_bounds_lanes_trimmed": (_P, _P, _P, _P, _P, _P, _P, _P, _F,
-                                    _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # (g, res, lines, n, out, stream)
-    "fgoicp_minplus_1d": (_P, _F, _I, _I, _P, _P),
+    # (base, gids, t, rows, boxes, order, gam_ub, gam_lb, gam_t, w, slack,
+    #  G, ns, n_buckets, L, n_drop, scratch, counts, lb_out, ub_out, stream)
+    "fgoicp_bounds_lanes_trimmed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                    _P),
+    # (g, res, lines, n, counts, out, stream)
+    "fgoicp_minplus_1d": (_P, _F, _I, _I, _P, _P, _P),
 }
 
 

@@ -256,13 +256,13 @@ class GoICP:
             log.debug(f"Source clusters: {src_k} reps, max radius "
                       f"{float(torch.max(self.src_clusters.deltas)):.4f}")
 
-        # The order in which the untrimmed proxy bound kernels' warps take
-        # the source points the frontier bounds (the clusters on the pooled
-        # path when there are any, else the full source): fixed for the
-        # engine, so built once here, not in every kernel call.
+        # The order in which the proxy bound kernels' warps take the source
+        # points the frontier bounds (the clusters on the pooled path when
+        # there are any, else the full source; trimmed engines have no auto
+        # clusters): fixed for the engine, so built once here, not in every
+        # kernel call.
         self._point_order = None
-        if isinstance(self.backend, bounds_ops.ProxyBackend) \
-                and self.trim_keep is None:
+        if isinstance(self.backend, bounds_ops.ProxyBackend):
             src = self.pcs
             if e.frontier_mode == "pooled" and self.src_clusters is not None:
                 src = self.src_clusters.reps

@@ -50,7 +50,7 @@ class ProxyBackend:
 
     @functools.cached_property
     def buckets(self) -> cuda_bounds.ProxyBuckets:
-        """The coreset's points as the untrimmed bound kernels search them
+        """The coreset's points as the proxy bound kernels search them
         (`cuda_bounds.proxy_buckets`), built on first use."""
         return cuda_bounds.proxy_buckets(self.coreset.points.contiguous())
 

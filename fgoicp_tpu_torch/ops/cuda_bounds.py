@@ -24,8 +24,8 @@ the order of the final sums over i differs, hence the rtol 2e-4 /
 atol 2e-5 they are compared at (the JAX package's tolerance between its
 Pallas kernels and XLA path).
 
-The untrimmed kernels find the nearest proxy by an exact box-pruned
-search (csrc/bounds_terms.cuh): the proxies sorted by a Morton code,
+All three kernels find the nearest proxy by an exact box-pruned search
+(csrc/bounds_terms.cuh): the proxies sorted by a Morton code,
 refined by median splits into compact buckets of BUCKET, each with its box
 (`proxy_buckets`), and the source points taken by each warp in runs of
 WARP_POINTS of an order (`source_order`).  Building the buckets takes
@@ -113,7 +113,7 @@ def spatial_order(points: torch.Tensor, leaf: int) -> torch.Tensor:
 
 
 class ProxyBuckets(NamedTuple):
-    """Proxies as the untrimmed bound kernels search them: `points` [P, 3]
+    """Proxies as the bound kernels search them: `points` [P, 3]
     as given (what the plain versions scan), `rows` [nb * BUCKET, 3] and
     `boxes` [nb, 6] built from them by `proxy_buckets`."""
     points: torch.Tensor
@@ -372,15 +372,50 @@ def fused_bounds_lanes(base, gids, t_lanes, proxies, gam_ub, gam_t_lanes,
     return out
 
 
+def _launch_lanes_trimmed(base, gids, t_lanes, gam_ub, gam_lb, gam_t_lanes,
+                          w, slack: float, n_drop: int,
+                          buckets: ProxyBuckets, point_order=None,
+                          counts=None):
+    """The trimmed lane kernel on checked CUDA arguments: lb, ub [L];
+    counts as `_launch_lanes`.  Counts no launch."""
+    lib = build.load()
+    n_groups, ns = base.shape[:2]
+    lanes, n_buckets = gids.shape[0], buckets.boxes.shape[0]
+    device = base.device
+    lb = torch.empty(lanes, dtype=torch.float32, device=device)
+    ub = torch.empty(lanes, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        fits = ctypes.c_int(0)
+        build.check(lib.fgoicp_bounds_lanes_trimmed_fits(
+            ns, n_buckets, ctypes.byref(fits)), "fused_bounds_lanes_trimmed")
+        # Terms that do not fit in shared memory go through a scratch.
+        scratch = None if fits.value else torch.empty(
+            (lanes, 2, ns), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        build.check(lib.fgoicp_bounds_lanes_trimmed(
+            base.data_ptr(), gids.data_ptr(), t_lanes.data_ptr(),
+            buckets.rows.data_ptr(), buckets.boxes.data_ptr(),
+            _ptr(point_order), gam_ub.data_ptr(), gam_lb.data_ptr(),
+            gam_t_lanes.data_ptr(), w.data_ptr(), slack, n_groups, ns,
+            n_buckets, lanes, n_drop, _ptr(scratch), _ptr(counts),
+            lb.data_ptr(), ub.data_ptr(), stream),
+            "fused_bounds_lanes_trimmed")
+    return lb, ub
+
+
 def fused_bounds_lanes_trimmed(base, gids, t_lanes, proxies, gam_ub,
                                gam_t_lanes, slack, n_drop: int,
-                               point_weights=None, gam_lb=None):
+                               point_weights=None, gam_lb=None, *,
+                               point_order=None):
     """Trimmed lb, ub [L]: the lane sums of `fused_bounds_lanes` less a
     sound bracket of each lane's n_drop largest weighted terms ("over" on
     lb, "under" on ub), formed as `kept_sum`.
-    point_weights must be a 0/1 mask.  Same argument order as the JAX
-    function, plus n_drop.  Replaces
+    point_weights must be a 0/1 mask; proxies and point_order as
+    `fused_bounds_lanes`.  Same argument order as the JAX function, plus
+    n_drop.  Replaces
     `fgoicp_tpu/ops/pallas_bounds.py::fused_bounds_lanes_trimmed`."""
+    proxies, buckets = _search_args("fused_bounds_lanes_trimmed", proxies,
+                                    point_order, base.shape[1])
     device, gam_lb, point_weights = _lane_args(
         "fused_bounds_lanes_trimmed", base, gids, t_lanes, proxies, gam_ub,
         gam_lb, gam_t_lanes, point_weights)
@@ -390,28 +425,13 @@ def fused_bounds_lanes_trimmed(base, gids, t_lanes, proxies, gam_ub,
         return fused_bounds_lanes_trimmed_plain(
             base, gids, t_lanes, proxies, gam_ub, gam_lb, gam_t_lanes, slack,
             point_weights, n_drop)
-    lib = build.load()
-    n_groups, ns = base.shape[:2]
-    lanes, n_prox = gids.shape[0], proxies.shape[0]
-    lb = torch.empty(lanes, dtype=torch.float32, device=device)
-    ub = torch.empty(lanes, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        fits = ctypes.c_int(0)
-        build.check(lib.fgoicp_bounds_lanes_trimmed_fits(
-            ns, n_prox, ctypes.byref(fits)), "fused_bounds_lanes_trimmed")
-        # Terms that do not fit in shared memory go through a scratch.
-        scratch = None if fits.value else torch.empty(
-            (lanes, 2, ns), dtype=torch.float32, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        build.check(lib.fgoicp_bounds_lanes_trimmed(
-            base.data_ptr(), gids.data_ptr(), t_lanes.data_ptr(),
-            proxies.data_ptr(), gam_ub.data_ptr(), gam_lb.data_ptr(),
-            gam_t_lanes.data_ptr(), point_weights.data_ptr(), slack,
-            n_groups, ns, n_prox, lanes, n_drop,
-            None if scratch is None else scratch.data_ptr(), lb.data_ptr(),
-            ub.data_ptr(), stream), "fused_bounds_lanes_trimmed")
+    if buckets is None:
+        buckets = proxy_buckets(proxies)
+    out = _launch_lanes_trimmed(base, gids, t_lanes, gam_ub, gam_lb,
+                                gam_t_lanes, point_weights, slack, n_drop,
+                                buckets, point_order)
     fused_bounds_lanes_trimmed.launches += 1
-    return lb, ub
+    return out
 
 
 def _launch_grid(base, t_centers, gam_ub, gam_lb, gam_t, w, slack: float,

@@ -13,7 +13,11 @@ axis of the grid.
 
 Dispatch: CPU tensors go to the plain version; CUDA tensors launch the kernel
 or raise.  `minplus_1d.launches` counts the kernel launches.  The kernel
-equals the plain version bit for bit (min is exact; see the source note).
+equals the plain version bit for bit: min is exact, and the kernel skips
+only (line, output, chunk of j) triples that provably cannot win (see the
+source note).  Its layout: blocks of TILE_LINES lines, warps of
+WARP_LINES, output tiles of TILE_OUT (OUTS_PER_THREAD a thread), chunks of
+CHUNK j.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ import torch
 
 from ..kernels import build
 from .cuda_nn import check_f32
+
+# The kernel's layout (csrc/minplus.cu): lines per block and per warp,
+# outputs per tile and per thread, and j per chunk.
+TILE_LINES, WARP_LINES, TILE_OUT, OUTS_PER_THREAD, CHUNK = 64, 8, 128, 4, 32
 
 
 def minplus_1d_plain(g: torch.Tensor, res: float, out_chunk: int = 128,
@@ -58,14 +66,24 @@ def minplus_1d(g: torch.Tensor, res: float) -> torch.Tensor:
                          f"and n < 2^24")
     if device.type == "cpu" or g.numel() == 0:
         return minplus_1d_plain(g, res)
-    lib = build.load()
-    out = torch.empty_like(g)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        build.check(lib.fgoicp_minplus_1d(g.data_ptr(), float(res), lines, n,
-                                          out.data_ptr(), stream),
-                    "minplus_1d")
+    out = _launch(g, res)
     minplus_1d.launches += 1
+    return out
+
+
+def _launch(g: torch.Tensor, res: float, counts=None) -> torch.Tensor:
+    """The kernel on a checked CUDA g.  counts, an int64 CUDA tensor [2] or
+    None, gets the (line, i, j) triples evaluated and the (warp, chunk)
+    pairs staged added.  Counts no launch."""
+    lib = build.load()
+    lines, n = g.shape
+    out = torch.empty_like(g)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        build.check(lib.fgoicp_minplus_1d(
+            g.data_ptr(), float(res), lines, n,
+            None if counts is None else counts.data_ptr(), out.data_ptr(),
+            stream), "minplus_1d")
     return out
 
 

@@ -97,7 +97,7 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
     (-1 = none) — the engine points each gamma-relaxed lb-pass group at its
     fixed-rotation twin.  trim_keep / trim_ns: keep the trim_keep smallest
     of trim_ns member terms (trim_ns defaults to ns; with point_deltas it
-    is the global member count).  point_order: the untrimmed lane kernel's
+    is the global member count).  point_order: the proxy lane kernels'
     `cuda_bounds.source_order` of pcs.  Returns the final PoolState.
     """
     if unported:
@@ -140,7 +140,6 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
     if point_weights is not None:
         point_weights = point_weights.contiguous()
     if not lut:
-        proxies = backend.coreset.points.contiguous()
         # One read-back per call; the kernel takes the slack as a float32.
         slack = float(backend.coreset.eps)
     share = None
@@ -193,9 +192,10 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
                     drop_mode="under")
         elif n_drop > 0:
             lb_e, ub_e = cuda_bounds.fused_bounds_lanes_trimmed(
-                base, pop_gid.to(torch.int32), pop_c.contiguous(), proxies,
-                gam_ub, gam_t_l.contiguous(), slack, n_drop,
-                point_weights=point_weights, gam_lb=gam_lb)
+                base, pop_gid.to(torch.int32), pop_c.contiguous(),
+                backend.buckets, gam_ub, gam_t_l.contiguous(), slack, n_drop,
+                point_weights=point_weights, gam_lb=gam_lb,
+                point_order=point_order)
         else:
             lb_e, ub_e = cuda_bounds.fused_bounds_lanes(
                 base, pop_gid.to(torch.int32), pop_c.contiguous(),

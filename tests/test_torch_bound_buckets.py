@@ -1,4 +1,4 @@
-"""The layout of the untrimmed bound kernels' box-pruned nearest-proxy
+"""The layout of the bound kernels' box-pruned nearest-proxy
 search (fgoicp_tpu_torch/ops/cuda_bounds.py: `morton_codes`,
 `spatial_order`, `proxy_buckets`, `source_order`), the wrappers' buckets
 and point order arguments, and a plain torch mirror of the kernels'
@@ -417,6 +417,9 @@ def test_wrappers_check_buckets_and_point_order(fault, error):
     lanes[3] = buckets
     with pytest.raises(error):
         cuda_bounds.fused_bounds_lanes(*lanes, point_order=order)
+    with pytest.raises(error):
+        cuda_bounds.fused_bounds_lanes_trimmed(*lanes[:7], 10,
+                                               point_order=order)
     with pytest.raises(error):
         cuda_bounds.fused_bounds(base, torch.zeros(2, 4, 3), buckets,
                                  args[4], torch.zeros(2, 4), 0.0,

@@ -129,10 +129,16 @@ def _trimmed_lane_case(seed, g, lanes, ns, p, weights=None):
     return base, gids, t_lanes, proxies, gam_ub, gam_lb, gam_t
 
 
-@pytest.mark.parametrize("keep_of", ["ns-1", "0.7ns", "ns/3"])
-def test_fused_lanes_trimmed_plain_matches_pallas_and_xla(keep_of):
+@pytest.mark.parametrize("keep_of,search", [
+    ("ns-1", "bare"), ("0.7ns", "bare"), ("ns/3", "bare"),
+    ("ns-1", "buckets"), ("0.7ns", "buckets"), ("ns/3", "buckets")],
+    ids=["ns-1", "0.7ns", "ns/3", "ns-1-buckets", "0.7ns-buckets",
+         "ns/3-buckets"])
+def test_fused_lanes_trimmed_plain_matches_pallas_and_xla(keep_of, search):
     """The trim_keep values of test_fused_lanes_trimmed_matches_xla_bracket:
-    the plain version against the Pallas kernel and the XLA lane path."""
+    the plain version against the Pallas kernel and the XLA lane path,
+    given bare proxies or their `ProxyBuckets` and the source order (as
+    the pooled frontier gives them)."""
     ns = 700
     trim_keep = {"ns-1": ns - 1, "0.7ns": int(0.7 * ns), "ns/3": ns // 3}[
         keep_of]
@@ -146,10 +152,14 @@ def test_fused_lanes_trimmed_plain_matches_pallas_and_xla(keep_of):
         points=prox, eps=slack))
     lb_x, ub_x = _eval_lanes_xla(backend, base, gids, t_l, gam_ub, gam_lb,
                                  gam_t, None, trim_keep)
+    proxies, order = T(prox), None
+    if search == "buckets":
+        proxies = cuda_bounds.proxy_buckets(proxies)
+        order = cuda_bounds.source_order(T(base)[0])
     before = cuda_bounds.fused_bounds_lanes_trimmed.launches
     lb_t, ub_t = cuda_bounds.fused_bounds_lanes_trimmed(
-        T(base), T(gids), T(t_l), T(prox), T(gam_ub), T(gam_t), float(slack),
-        ns - trim_keep, gam_lb=T(gam_lb))
+        T(base), T(gids), T(t_l), proxies, T(gam_ub), T(gam_t), float(slack),
+        ns - trim_keep, gam_lb=T(gam_lb), point_order=order)
     assert cuda_bounds.fused_bounds_lanes_trimmed.launches == before
     for ref_lb, ref_ub in ((lb_k, ub_k), (lb_x, ub_x)):
         np.testing.assert_allclose(ub_t.numpy(), np.asarray(ref_ub),

@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from fgoicp_tpu.config import Config as JConfig
 from fgoicp_tpu.models.goicp import GoICP as JGoICP, register as jregister
@@ -74,6 +75,8 @@ def test_trimmed_goicp_matches_jax(backend):
     assert (cuda_bounds.fused_bounds_lanes.launches,
             cuda_bounds.fused_bounds_lanes_trimmed.launches) == before
     assert tm.trim_keep == int(round(240 * 0.75)) and tm.src_clusters is None
+    # The trimmed lane kernel's source order, built once at set-up.
+    assert torch.equal(tm._point_order, cuda_bounds.source_order(tm.pcs))
     # The JAX test's own recovery bound (outliers limit the fit).
     _assert_same_solution(jm, tm, R_j, t_j, R_t, t_t, R_true, t_true,
                           pose_atol=0.05)
