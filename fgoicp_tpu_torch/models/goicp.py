@@ -36,9 +36,15 @@ Within one outer batch, all children see the incumbent from the start of
 the step (the reference lets child k see child k-1's ICP improvement); this
 only weakens in-search pruning slightly.
 
+The serving mode (models/serving.py) hands two things to the engine of a
+pair its batch did not certify: `seed_pose_centered`, the batch's seeding
+pose in the source-centred frame, from which the initial ICP starts instead
+of the 15-start sweep; and `shared_proxy`, one proxy coreset of the centred
+target shared by every fallback and rescaled here to the pair's frame.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the device outer loop, pool_update="merge", meshes, the serving hand-offs,
-checkpoints and the search-state sanitizer.
+the device outer loop, pool_update="merge", meshes, checkpoints and the
+search-state sanitizer.
 """
 
 from __future__ import annotations
@@ -113,8 +119,7 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_engine(e: EngineConfig, bound_backend: str, mesh,
-                  seed_pose_centered, shared_proxy):
+def _check_engine(e: EngineConfig, bound_backend: str, mesh):
     """Reject engine options this port does not run yet, naming the ROADMAP
     item that ports each; unknown values raise ValueError as in JAX."""
     if e.outer_mode not in ("host", "device"):
@@ -131,9 +136,6 @@ def _check_engine(e: EngineConfig, bound_backend: str, mesh,
          "'sort' only)"),
         (mesh is not None or e.mesh_cubes * e.mesh_points > 1,
          "meshes are ROADMAP Queue 1 item 16 (multi-GPU)"),
-        (seed_pose_centered is not None or shared_proxy is not None,
-         "seed_pose_centered / shared_proxy are the serving hand-offs, "
-         "ROADMAP Queue 1 item 13"),
         (bool(e.checkpoint_path),
          "checkpoints are ROADMAP Queue 1 item 12"),
         (e.debug_checks,
@@ -176,8 +178,7 @@ class GoICP:
                     f"{name} cloud needs at least 3 points, got {pc.shape[0]}")
             if not np.all(np.isfinite(pc)):
                 raise ValueError(f"{name} cloud contains NaN/inf values")
-        _check_engine(e, bound_backend, mesh, seed_pose_centered,
-                      shared_proxy)
+        _check_engine(e, bound_backend, mesh)
         _check_fp32_matmul()
         self.device = _resolve_device(device)
         dev = self.device
@@ -204,10 +205,28 @@ class GoICP:
                 self.pct, kind="lut", field=field,
                 conservative=e.lut_conservative, ref_compat=e.ref_compat_lut,
                 lookup=e.lut_lookup)
+        elif shared_proxy is not None and bound_backend == "proxy":
+            # The caller's coreset of the CENTRED target, rescaled into this
+            # pair's normalized frame: uniform scaling keeps the FPS choice,
+            # and the covering radius scales linearly.
+            f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                            device=dev)
+            self.backend = bounds_ops.ProxyBackend(
+                coreset=coreset_ops.ProxyCoreset(
+                    points=f32(shared_proxy.points) * self.norm.scale,
+                    eps=f32(shared_proxy.eps) * self.norm.scale))
         else:
             self.backend = bounds_ops.make_backend(
                 self.pct, kind=bound_backend, proxy_size=proxy_size,
                 seed=e.seed)
+        # A seeding pose handed over by the serving batch, in the centred
+        # (unscaled) source frame: only the translation scales.
+        self._seed_pose = None
+        if seed_pose_centered is not None:
+            R_s, t_s = seed_pose_centered
+            self._seed_pose = (np.asarray(R_s, np.float32),
+                               np.asarray(t_s, np.float32)
+                               * float(self.norm.scale))
 
         # Search-phase ICP target: the proxy coreset when it is smaller than
         # the full target (see _icp; the incumbent sse is always re-scored
@@ -364,15 +383,20 @@ class GoICP:
     def _initial_icp(self):
         """Seed the incumbent with cascaded multi-start ICP: stage 1 at the
         reference's eps=0.05 from identity plus the 14 multi-start
-        rotations; a tighter warm-restart sweep and a full-cloud polish of
-        the best lanes only when uncertified (config.icp_seed_fine_conv /
+        rotations (from a handed-over seed pose plus identity instead, when
+        given); a tighter warm-restart sweep and a full-cloud polish of the
+        best lanes only when uncertified (config.icp_seed_fine_conv /
         icp_seed_polish)."""
         e = self.engine
-        if e.icp_multi_start:
-            R0 = geo.multi_start_rotations()
+        if self._seed_pose is not None:
+            # The serving batch already swept the multi-start set: start
+            # from its pose and from identity (the reference's own start).
+            R0 = np.stack([self._seed_pose[0], np.eye(3, dtype=np.float32)])
+            t0 = np.stack([self._seed_pose[1], np.zeros(3, np.float32)])
         else:
-            R0 = np.eye(3, dtype=np.float32)[None]
-        t0 = np.zeros((len(R0), 3), np.float32)
+            R0 = (geo.multi_start_rotations() if e.icp_multi_start
+                  else np.eye(3, dtype=np.float32)[None])
+            t0 = np.zeros((len(R0), 3), np.float32)
         sse, R, t = self._icp_padded(
             R0, t0, len(R0), e.icp_convergence_init, search=True)
         k = int(np.argmin(sse[:len(R0)]))
@@ -381,7 +405,14 @@ class GoICP:
         self.stats.icp_runs += len(R0)
         if self.best_sse > self.sse_threshold and len(R0) > 1:
             # Cascade stage 2: warm-restart the sweep from the stage-1 poses
-            # with a tighter cutoff so true basins rank first.
+            # with a tighter cutoff so true basins rank first.  A seed-pose
+            # run widens back to the 14 other starts: the pair is here
+            # because the batch's winner did not certify.
+            if self._seed_pose is not None and e.icp_multi_start:
+                starts = geo.multi_start_rotations(include_identity=False)
+                R = np.concatenate([R[:len(R0)], starts])
+                t = np.concatenate([t[:len(R0)],
+                                    np.zeros((len(starts), 3), np.float32)])
             sse, R, t = self._icp_padded(
                 R, t, len(R), e.icp_seed_fine_conv, search=True)
             k = int(np.argmin(sse[:len(R)]))

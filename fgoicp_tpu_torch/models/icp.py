@@ -27,35 +27,49 @@ def _masked(pred: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
     return torch.where(pred.reshape(shape), new, old)
 
 
-def _unported(trim_keep, point_weights, pcs):
-    if point_weights is not None and trim_keep is not None \
-            and trim_keep < pcs.shape[-2]:
-        # Padding zeros would displace real points from the trim keep-set.
+def _lane_weights(point_weights, trim_keep, g: int, ns: int, device):
+    """point_weights ([ns] or [G, ns]) broadcast to [G, ns] float32, or None.
+    0 marks padding rows (the ragged serving batch); soft values weight
+    Procrustes and the SSE."""
+    if point_weights is None:
+        return None
+    if _trimmed(trim_keep, ns):
+        # Padding zeros would displace real points from the trim keep-set;
+        # the ragged serving path forbids trimming instead.
         raise ValueError("point_weights cannot combine with trim_keep")
-    if point_weights is not None or pcs.ndim == 3:
-        raise NotImplementedError(
-            "point_weights and per-lane [G, ns, 3] sources are the serving "
-            "mode, ROADMAP Queue 1 item 13")
+    w = torch.as_tensor(point_weights, dtype=torch.float32, device=device)
+    return w.expand(g, ns)
+
+
+def _transform(R: torch.Tensor, pcs: torch.Tensor, t: torch.Tensor):
+    """R @ p + t per lane: pcs [ns, 3] is shared by the lanes, [G, ns, 3]
+    gives each lane its own source (the batched serving mode)."""
+    spec = "gnc" if pcs.ndim == 3 else "nc"
+    return torch.einsum(f"grc,{spec}->gnr", R, pcs) + t[:, None, :]
 
 
 def _trimmed(trim_keep, ns):
     return trim_keep is not None and trim_keep < ns
 
 
-def trimmed_sum(d2: torch.Tensor, trim_keep) -> torch.Tensor:
+def trimmed_sum(d2: torch.Tensor, trim_keep, weights=None) -> torch.Tensor:
     """Sum of the trim_keep smallest entries of d2 [G, ns] per lane (all
-    of them without trimming)."""
+    of them without trimming), each weighted by `weights` [G, ns] when
+    given (weights never combine with trimming)."""
+    if weights is not None:
+        d2 = d2 * weights
     if not _trimmed(trim_keep, d2.shape[-1]):
         return torch.sum(d2, dim=-1)
     return torch.sum(torch.topk(d2, trim_keep, dim=-1, largest=False).values,
                      dim=-1)
 
 
-def trim_mask(d2: torch.Tensor, trim_keep):
+def trim_mask(d2: torch.Tensor, trim_keep, weights=None):
     """1 for the points whose d2 is at most the trim_keep-th smallest (ties
-    keep extra points, as in the JAX package), else 0; None untrimmed."""
+    keep extra points, as in the JAX package), else 0; untrimmed, the
+    point weights themselves (None without them)."""
     if not _trimmed(trim_keep, d2.shape[-1]):
-        return None
+        return weights
     thr = torch.kthvalue(d2, trim_keep, dim=-1).values
     return (d2 <= thr[..., None]).to(torch.float32)
 
@@ -66,17 +80,20 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
                 target_axis=None, point_weights=None):
     """Run G ICP problems in lockstep.
 
-    pct [nt, 3] target, pcs [ns, 3] source, R0 [G, 3, 3], t0 [G, 3]
-    float32 tensors on one device; active [G] bool (inactive lanes are
-    skipped).  trim_keep: Procrustes takes only the trim_keep best
+    pct [nt, 3] target, pcs [ns, 3] source shared by the lanes or [G, ns,
+    3] one source per lane (the batched serving mode), R0 [G, 3, 3], t0
+    [G, 3] float32 tensors on one device; active [G] bool (inactive lanes
+    are skipped).  trim_keep: Procrustes takes only the trim_keep best
     correspondences and the SSE sums only the trim_keep smallest residuals
-    (trimmed ICP).  Returns (sse [G], R [G, 3, 3], t [G, 3]).
+    (trimmed ICP).  point_weights: [ns] or [G, ns] per-point weights of
+    Procrustes and the SSE (0 marks padding; not with trim_keep).
+    Returns (sse [G], R [G, 3, 3], t [G, 3]).
     """
-    _unported(trim_keep, point_weights, pcs)
     if target_axis is not None:
         raise NotImplementedError(
             "target-sharded ICP is ROADMAP Queue 1 item 16 (multi-GPU)")
-    g, ns = R0.shape[0], pcs.shape[0]
+    g, ns = R0.shape[0], pcs.shape[-2]
+    w = _lane_weights(point_weights, trim_keep, g, ns, pcs.device)
     if active is None:
         active = torch.ones(g, dtype=torch.bool, device=pcs.device)
 
@@ -84,7 +101,9 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
         d2, idx = nn_ops.nearest_neighbor(cur, pct)
         return d2.reshape(g, ns), idx.reshape(g, ns)
 
-    cur = torch.einsum("grc,nc->gnr", R0, pcs) + t0[:, None, :]
+    # Per-lane sources change only the first transform: the loop carries
+    # the transformed points either way.
+    cur = _transform(R0, pcs, t0)
     d2, idx = nn_query(cur)
     sse = torch.full((g,), BIG, dtype=torch.float32, device=pcs.device)
     last_sse = torch.full((g,), 2 * BIG, dtype=torch.float32, device=pcs.device)
@@ -97,12 +116,13 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
         # carried from the previous iteration's single NN pass: the SSE
         # query of iteration k is the correspondence query of k+1.
         corr = pct[idx.long()]
-        R_, t_ = proc_ops.procrustes(cur, corr, mask=trim_mask(d2, trim_keep))
+        R_, t_ = proc_ops.procrustes(cur, corr,
+                                     mask=trim_mask(d2, trim_keep, w))
         new_cur = torch.einsum("grc,gnc->gnr", R_, cur) + t_[:, None, :]
         new_R = torch.einsum("gab,gbc->gac", R_, R)
         new_t = torch.einsum("gab,gb->ga", R_, t) + t_
         d2n, idxn = nn_query(new_cur)
-        new_sse = trimmed_sum(d2n, trim_keep)
+        new_sse = trimmed_sum(d2n, trim_keep, w)
 
         last_sse = _masked(run, sse, last_sse)
         sse = _masked(run, new_sse, sse)
@@ -128,17 +148,18 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
 def exact_sse_batched(pct: torch.Tensor, pcs: torch.Tensor, R: torch.Tensor,
                       t: torch.Tensor, trim_keep=None, target_axis=None,
                       point_weights=None) -> torch.Tensor:
-    """Exact (optionally trimmed) SSE [G] of G poses against the full
-    target, in one NN pass — used to re-anchor incumbents produced by
-    proxy-target search ICPs on the true objective (models/goicp.py)."""
-    _unported(trim_keep, point_weights, pcs)
+    """Exact (optionally trimmed or weighted) SSE [G] of G poses against
+    the full target, in one NN pass — used to re-anchor incumbents produced
+    by proxy-target search ICPs on the true objective (models/goicp.py).
+    pcs: [ns, 3] shared source or [G, ns, 3] per-lane sources."""
     if target_axis is not None:
         raise NotImplementedError(
             "target-sharded SSE is ROADMAP Queue 1 item 16 (multi-GPU)")
-    g, ns = R.shape[0], pcs.shape[0]
-    cur = torch.einsum("grc,nc->gnr", R, pcs) + t[:, None, :]
+    g, ns = R.shape[0], pcs.shape[-2]
+    w = _lane_weights(point_weights, trim_keep, g, ns, pcs.device)
+    cur = _transform(R, pcs, t)
     return trimmed_sum(nn_ops.nearest_sqdist(cur, pct).reshape(g, ns),
-                       trim_keep)
+                       trim_keep, w)
 
 
 def icp_register(pct: torch.Tensor, pcs: torch.Tensor, R0=None, t0=None,

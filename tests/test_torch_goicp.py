@@ -161,15 +161,16 @@ def test_import_never_loads_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# The ids are those the cases had beside the two serving hand-off cases,
+# which went with the serving port (tests/test_torch_serving.py).
 @pytest.mark.parametrize("kw,item", [
     (dict(engine=dict(outer_mode="device")), "item 11"),
     (dict(engine=dict(pool_update="merge")), "item 7"),
     (dict(engine=dict(mesh_cubes=2)), "item 16"),
-    (dict(seed_pose_centered=(np.eye(3), np.zeros(3))), "item 13"),
-    (dict(shared_proxy=object()), "item 13"),
     (dict(engine=dict(checkpoint_path="ckpt.npz")), "item 12"),
     (dict(engine=dict(debug_checks=True)), "item 12"),
-])
+], ids=["kw0-item 11", "kw1-item 7", "kw2-item 16", "kw5-item 12",
+        "kw6-item 12"])
 def test_unported_options_name_their_roadmap_item(kw, item):
     pct, pcs, _, _ = _make_problem(seed=13, angle=0.5)
     kw = dict(kw)

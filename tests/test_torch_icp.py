@@ -126,13 +126,101 @@ def test_trimmed_exact_sse_batched_and_masks_match_jax():
                                point_weights=torch.ones(len(pcs)))
 
 
+# The ids are those the cases had beside the point_weights case, which went
+# with the serving port (point weights are now parity-tested below).
 @pytest.mark.parametrize("kw,item", [
-    (dict(point_weights=torch.ones(160)), "item 13"),
     (dict(target_axis="points"), "item 16"),
-])
+], ids=["kw1-item 16"])
 def test_icp_unported_options_name_their_roadmap_item(kw, item):
     pct, pcs, _, _ = _make_problem()
     R0, t0, _ = _lanes()
     with pytest.raises(NotImplementedError, match=item):
         ticp.icp_batched(torch.from_numpy(pct), torch.from_numpy(pcs),
                          torch.from_numpy(R0), torch.from_numpy(t0), **kw)
+
+
+def _serving_lanes():
+    """Per-lane sources: G = 8 lanes, each a different 80-point subsample of
+    the problem's source moved by its own small rotation, from the 8
+    octant-centre starts; ragged 0/1 weights (the serving batch's padding)
+    and soft weights."""
+    pct, pcs, _, _ = _make_problem(seed=6, angle=0.6)
+    rng = np.random.default_rng(23)
+    g, ns = 8, 80
+    srcs = []
+    for lane in range(g):
+        idx = rng.choice(len(pcs), size=ns, replace=False)
+        ang = rng.uniform(-0.2, 0.2)
+        c, s_ = np.cos(ang), np.sin(ang)
+        Rl = np.array([[1, 0, 0], [0, c, -s_], [0, s_, c]], np.float32)
+        srcs.append(pcs[idx] @ Rl.T)
+    srcs = np.stack(srcs).astype(np.float32)
+    R0 = jgeo.multi_start_rotations()[1:1 + g]
+    t0 = rng.uniform(-0.05, 0.05, size=(g, 3)).astype(np.float32)
+    ragged = np.ones((g, ns), np.float32)
+    for lane, n in enumerate((80, 60, 41, 80, 75, 20, 66, 53)):
+        ragged[lane, n:] = 0.0
+        srcs[lane, n:] = srcs[lane, 0]
+    soft = rng.uniform(0.2, 1.5, size=(g, ns)).astype(np.float32)
+    shared = rng.uniform(0.5, 1.0, size=(ns,)).astype(np.float32)
+    return pct, srcs, R0, t0, dict(none=None, ragged=ragged, soft=soft,
+                                   shared=shared)
+
+
+@pytest.mark.parametrize("weights", ["none", "ragged", "soft", "shared"])
+def test_per_lane_icp_batched_matches_jax(weights):
+    """[G, ns, 3] sources with no weights, [G, ns] 0/1 ragged weights, soft
+    weights and [ns] weights (the serving mode's lanes)."""
+    pct, srcs, R0, t0, ws = _serving_lanes()
+    w = ws[weights]
+    sse_j, R_j, t_j = jicp.icp_batched(pct, srcs, R0, t0, max_iter=100,
+                                       convergence_threshold=0.005,
+                                       point_weights=w)
+    sse_t, R_t, t_t = ticp.icp_batched(
+        torch.from_numpy(pct), torch.from_numpy(srcs), torch.from_numpy(R0),
+        torch.from_numpy(t0), max_iter=100, convergence_threshold=0.005,
+        point_weights=None if w is None else torch.from_numpy(w))
+    np.testing.assert_allclose(sse_t.numpy(), np.asarray(sse_j),
+                               rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(R_t.numpy(), np.asarray(R_j), atol=1e-4)
+    np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), atol=1e-4)
+
+    # exact_sse_batched at the ICP's poses, per-lane sources and weights.
+    s_j = jicp.exact_sse_batched(pct, srcs, np.asarray(R_j), np.asarray(t_j),
+                                 point_weights=w)
+    s_t = ticp.exact_sse_batched(
+        torch.from_numpy(pct), torch.from_numpy(srcs), R_t, t_t,
+        point_weights=None if w is None else torch.from_numpy(w))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-4,
+                               atol=1e-7)
+    # The ICP's carried SSE is its last exact pass: the two agree.
+    np.testing.assert_allclose(s_t.numpy(), sse_t.numpy(), rtol=1e-5,
+                               atol=1e-9)
+
+
+def test_point_weights_mask_padding_exactly():
+    """Zero-weight padding rows change nothing: a ragged lane's ICP equals
+    that cloud run alone, and trimmed_sum / trim_mask take the weights
+    (trim_mask returns them untrimmed)."""
+    pct, srcs, R0, t0, ws = _serving_lanes()
+    lane, n = 2, 41
+    w = torch.from_numpy(ws["ragged"])
+    sse, R, t = ticp.icp_batched(
+        torch.from_numpy(pct), torch.from_numpy(srcs), torch.from_numpy(R0),
+        torch.from_numpy(t0), point_weights=w)
+    sse1, R1, t1 = ticp.icp_batched(
+        torch.from_numpy(pct), torch.from_numpy(srcs[lane, :n]),
+        torch.from_numpy(R0[lane:lane + 1]), torch.from_numpy(t0[lane:lane + 1]))
+    np.testing.assert_allclose(float(sse[lane]), float(sse1[0]), rtol=1e-5,
+                               atol=1e-9)
+    np.testing.assert_allclose(R[lane].numpy(), R1[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose(t[lane].numpy(), t1[0].numpy(), atol=1e-5)
+    d2 = torch.tensor([[0.3, 0.1, 0.2, 0.2, 0.5]])
+    wt = torch.tensor([[1.0, 0.5, 0.0, 2.0, 1.0]])
+    assert ticp.trim_mask(d2, None, wt) is wt
+    assert ticp.trim_mask(d2, 5, wt) is wt
+    np.testing.assert_allclose(float(ticp.trimmed_sum(d2, None, wt)[0]), 1.25)
+    with pytest.raises(ValueError, match="point_weights"):
+        ticp.icp_batched(torch.from_numpy(pct), torch.from_numpy(srcs),
+                         torch.from_numpy(R0), torch.from_numpy(t0),
+                         trim_keep=40, point_weights=w)
