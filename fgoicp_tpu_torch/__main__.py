@@ -1,18 +1,20 @@
 """CLI entry: `python -m fgoicp_tpu_torch -c <config.toml> [-v] [--seed N]
-[--serve GLOB] [--device cuda|cpu]`.
+[--resume] [--debug-checks] [--serve GLOB] [--device cuda|cpu]`.
 
 Flag surface of the JAX package's CLI (and the reference app,
 src/main.cpp:8-58) for the ported paths: required -c/--config TOML path,
--v/--verbose debug logging, --seed for deterministic subsampling, --serve
-for the batched serving mode, plus --device (default cuda; `cuda` without a
-card raises).  Writes the [io] output result TOML and the [io]
-visualization PLY when set.  Resume, profiling and mesh flags are not
-offered yet.
+-v/--verbose debug logging, --seed for deterministic subsampling, --resume
+from engine.checkpoint_path, --debug-checks for the search-state sanitizer,
+--serve for the batched serving mode, plus --device (default cuda; `cuda`
+without a card raises).  Writes the [io] output result TOML and the [io]
+visualization PLY when set.  The profiling, NaN-debugging and mesh flags are
+not offered yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -36,6 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Enable debug-level logging")
     p.add_argument("--seed", type=int, default=None,
                    help="Override engine.seed (subsampling/backends)")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from engine.checkpoint_path if it exists")
+    p.add_argument("--debug-checks", action="store_true",
+                   help="Enable the search-state sanitizer "
+                        "(utils/sanitize.py): frontier structure, "
+                        "lb <= ub bracketing, and incumbent faithfulness "
+                        "validated every outer step")
     p.add_argument("--serve", metavar="GLOB", default="",
                    help="Serving mode: register EVERY cloud matching the "
                         "glob against the config's [io] target in one "
@@ -54,6 +63,8 @@ def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     log.set_verbose(args.verbose)
     cfg = Config.from_toml(args.config)
+    if args.debug_checks:
+        cfg.engine.debug_checks = True
     if args.seed is not None:
         cfg.engine.seed = args.seed
 
@@ -71,6 +82,9 @@ def run(argv=None) -> int:
         mse_threshold=cfg.params.mse_threshold, engine=cfg.engine,
         trim_fraction=(cfg.params.trim_fraction if cfg.params.trim else 0.0),
         device=args.device)
+    if args.resume and cfg.engine.checkpoint_path and \
+            os.path.exists(cfg.engine.checkpoint_path):
+        model.load_checkpoint(cfg.engine.checkpoint_path)
     t0 = time.time()
     R, t = model.run()
     elapsed = time.time() - t0

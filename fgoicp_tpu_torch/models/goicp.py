@@ -42,9 +42,17 @@ pose in the source-centred frame, from which the initial ICP starts instead
 of the 15-start sweep; and `shared_proxy`, one proxy coreset of the centred
 target shared by every fallback and rescaled here to the pair's frame.
 
+The device outer loop (`EngineConfig.outer_mode="device"`,
+ops/so3_frontier.py) keeps the SO(3) frontier on the model's device and runs
+the nested search in one call, or in checkpoint_every-step chunks when a
+checkpoint path is set; an open device gap is re-certified by the host loop.
+Checkpoints (`save_checkpoint` / `load_checkpoint(s)`, utils/checkpoint.py)
+hold the host heap or the device SO3State in the JAX package's format, and
+`debug_checks` runs the search-state sanitizer (utils/sanitize.py) at every
+host outer step and device-state retrieval.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the device outer loop, pool_update="merge", meshes, checkpoints and the
-search-state sanitizer.
+pool_update="merge" and meshes.
 """
 
 from __future__ import annotations
@@ -68,7 +76,10 @@ from ..ops import distance_field as df_ops
 from ..ops import frontier as frontier_ops
 from ..ops import geometry as geo
 from ..ops import pool_frontier
+from ..ops import so3_frontier as so3_ops
+from ..utils import checkpoint as ckpt
 from ..utils import logging as log
+from ..utils import sanitize
 from . import icp as icp_model
 
 BIG = 1e10  # reference M_INF (common.hpp:18)
@@ -129,18 +140,11 @@ def _check_engine(e: EngineConfig, bound_backend: str, mesh):
     if e.pool_update not in ("sort", "merge"):
         raise ValueError(f"Unknown pool_update mode: {e.pool_update!r}")
     unported = [
-        (e.outer_mode == "device",
-         "outer_mode='device' is ROADMAP Queue 1 item 11"),
         (e.pool_update == "merge",
          "pool_update='merge' is not ported (ROADMAP Queue 1 item 7 ports "
          "'sort' only)"),
         (mesh is not None or e.mesh_cubes * e.mesh_points > 1,
          "meshes are ROADMAP Queue 1 item 16 (multi-GPU)"),
-        (bool(e.checkpoint_path),
-         "checkpoints are ROADMAP Queue 1 item 12"),
-        (e.debug_checks,
-         "debug_checks (the search-state sanitizer) is ROADMAP Queue 1 "
-         "item 12"),
     ]
     for bad, msg in unported:
         if bad:
@@ -279,13 +283,18 @@ class GoICP:
         # points the frontier bounds (the clusters on the pooled path when
         # there are any, else the full source; trimmed engines have no auto
         # clusters): fixed for the engine, so built once here, not in every
-        # kernel call.
-        self._point_order = None
+        # kernel call.  The device loop always pools, whatever frontier_mode
+        # says; the host loop it may fall back to follows frontier_mode.
+        self._point_order = self._device_point_order = None
         if isinstance(self.backend, bounds_ops.ProxyBackend):
-            src = self.pcs
-            if e.frontier_mode == "pooled" and self.src_clusters is not None:
-                src = self.src_clusters.reps
-            self._point_order = cuda_bounds.source_order(src)
+            pooled = (self.src_clusters.reps if self.src_clusters is not None
+                      else self.pcs)
+            host_src = pooled if e.frontier_mode == "pooled" else self.pcs
+            self._point_order = cuda_bounds.source_order(host_src)
+            if e.outer_mode == "device":
+                self._device_point_order = (
+                    self._point_order if host_src is pooled
+                    else cuda_bounds.source_order(pooled))
 
         # Incumbent (runtime state, fgoicp.hpp:61-64).
         self.best_sse = BIG
@@ -296,6 +305,11 @@ class GoICP:
         self.stats = GoICPStats()
         self._tie = itertools.count()
         self._heap = []
+        # Checkpoints hash the clouds as given (float32, not normalized), as
+        # the JAX package does, so a checkpoint resumes in either package.
+        self._fingerprint = ckpt.cloud_fingerprint(pct, pcs)
+        self._resumed_heap = None
+        self._resumed_so3_state = None
         # Incumbent history: one entry per improvement,
         # (wall_seconds_since_run_start, sse, R, t_normalized).
         self.history = []
@@ -628,6 +642,113 @@ class GoICP:
                              np.asarray(self.best_rotation),
                              np.asarray(self.best_translation)))
 
+    # ----- checkpoint/resume (absent in the reference) -----
+    def save_checkpoint(self, path: str):
+        """Persist the outer heap + incumbent (atomic, fingerprinted).  It
+        consumes one tie, as the JAX package does, so that a resumed heap
+        orders its ties as an uninterrupted one."""
+        ckpt.save(
+            path, heap=list(self._heap), tie=next(self._tie),
+            best_sse=self.best_sse, best_rotation=self.best_rotation,
+            best_translation=self.best_translation,
+            stats=dataclasses.asdict(self.stats),
+            fingerprint=self._fingerprint,
+            closed_leaf_lb=self._closed_leaf_lb)
+
+    def _adopt_device_state(self, state, stats: dict):
+        self._resumed_so3_state = state
+        self.best_sse = float(state.best_sse)
+        self.best_rotation = np.asarray(state.best_R, np.float32)
+        self.best_translation = np.asarray(state.best_t, np.float32)
+        self.stats = GoICPStats(**stats)
+
+    def load_checkpoint(self, path: str):
+        """Restore a checkpoint saved against the same cloud pair; the next
+        run() skips the initial ICP and resumes the outer BnB.
+
+        Host-heap checkpoints resume the host loop, device-state (SO3State)
+        checkpoints the chunked device loop; a kind that does not match
+        engine.outer_mode raises, naming the outer_mode to use."""
+        if self.engine.outer_mode == "device":
+            st = ckpt.load_device_state(path, fingerprint=self._fingerprint)
+            state = so3_ops.state_from_arrays(st["state_arrays"])
+            self._adopt_device_state(state, st["stats"])
+            log.info(f"Resumed device checkpoint {path}: "
+                     f"best_sse={self.best_sse}, "
+                     f"outer_steps={int(state.outer_steps)}")
+            return
+        st = ckpt.load(path, fingerprint=self._fingerprint)
+        self.best_sse = st["best_sse"]
+        self.best_rotation = st["best_rotation"]
+        self.best_translation = st["best_translation"]
+        self.stats = GoICPStats(**st["stats"])
+        self._tie = itertools.count(st["tie"])
+        self._resumed_heap = st["heap"]
+        self._closed_leaf_lb = min(self._closed_leaf_lb, st["closed_leaf_lb"])
+        log.info(f"Resumed checkpoint {path}: best_sse={self.best_sse}, "
+                 f"{len(self._resumed_heap)} frontier nodes")
+
+    def load_checkpoints(self, paths):
+        """Elastic recovery: merge several checkpoints, one per process of a
+        partitioned run, into this model's resume state, then run().
+
+        The partition keeps every unexplored SO(3) subtree in exactly one
+        frontier, so the union of the frontiers plus the min incumbent
+        covers the whole region not yet pruned (resuming one checkpoint
+        alone would drop the others' subtrees and void the certificate).
+        Every checkpoint must carry this pair's fingerprint and the kind of
+        engine.outer_mode.  Counters sum; wall_seconds takes the max.
+        """
+        paths = list(paths)
+        if not paths:
+            raise ValueError("load_checkpoints needs at least one path")
+        if len(paths) == 1:
+            return self.load_checkpoint(paths[0])
+
+        def merge_stats(acc, new):
+            if acc is None:
+                return dict(new)
+            return {k: (max(acc[k], v) if k == "wall_seconds"
+                        else acc[k] + v) for k, v in new.items()}
+
+        stats = None
+        if self.engine.outer_mode == "device":
+            states = []
+            for p in paths:
+                st = ckpt.load_device_state(p, fingerprint=self._fingerprint)
+                states.append(so3_ops.state_from_arrays(st["state_arrays"]))
+                stats = merge_stats(stats, st["stats"])
+            self._adopt_device_state(so3_ops.merge_states(states), stats)
+            log.info(f"Merged {len(paths)} device checkpoints: "
+                     f"best_sse={self.best_sse}")
+            return
+        heap, tie = [], 0
+        best = (BIG, None, None)
+        for p in paths:
+            st = ckpt.load(p, fingerprint=self._fingerprint)
+            self._closed_leaf_lb = min(self._closed_leaf_lb,
+                                       st["closed_leaf_lb"])
+            for lb, _t, node in st["heap"]:
+                heap.append((lb, tie, node))
+                tie += 1
+            if st["best_sse"] < best[0]:
+                best = (st["best_sse"], st["best_rotation"],
+                        st["best_translation"])
+            stats = merge_stats(stats, st["stats"])
+        if best[1] is not None:
+            self.best_sse, self.best_rotation, self.best_translation = best
+        self.stats = GoICPStats(**stats)
+        self._tie = itertools.count(tie)
+        self._resumed_heap = heap
+        log.info(f"Merged {len(paths)} host checkpoints: "
+                 f"best_sse={self.best_sse}, {len(heap)} frontier nodes")
+
+    def _maybe_checkpoint(self):
+        e = self.engine
+        if e.checkpoint_path and e.checkpoint_every > 0 and \
+                self.stats.outer_steps % e.checkpoint_every == 0:
+            self.save_checkpoint(e.checkpoint_path)
+
     # ----- outer loop hooks (names shared with the JAX package) -----
     def root_nodes(self):
         """Initial outer-frontier nodes: the full quaternion cube
@@ -635,6 +756,12 @@ class GoICP:
         return [(0.0, 0.0, 0.0, 1.0)]
 
     def seed_heap(self):
+        """The outer heap: a resumed checkpoint's, else the root nodes."""
+        if self._resumed_heap is not None:
+            self._heap = list(self._resumed_heap)
+            heapq.heapify(self._heap)
+            self._resumed_heap = None
+            return
         self._heap = []
         for (x, y, z, span) in self.root_nodes():
             heapq.heappush(
@@ -680,15 +807,189 @@ class GoICP:
                       float(best_t[k][0]), float(best_t[k][1]),
                       float(best_t[k][2]))))
         self.stats.outer_steps += 1
+        self._maybe_checkpoint()
+        if e.debug_checks:
+            sanitize.check_heap(self._heap)
+            sanitize.check_incumbent(self)
         return True
 
     def _branch_and_bound_so3(self):
         """Outer loop (fgoicp.cpp:32-100), batched over rotation nodes."""
+        if self.engine.outer_mode == "device":
+            return self._bnb_so3_device()
+        return self._bnb_so3_host()
+
+    def _bnb_so3_host(self):
         self.seed_heap()
         while self._heap and not self.outer_converged():
             self.outer_step()
         self.last_certified_gap = float(
             self.best_sse - min(self.heap_min_lb(), self._closed_leaf_lb))
+        return self.best_sse
+
+    # SO3State counter field -> GoICPStats field (device outer mode).
+    _DEVICE_COUNTERS = {
+        "outer_steps": "outer_steps",
+        "nodes_expanded": "rotation_nodes",
+        "children_evaluated": "rotation_children",
+        "inner_nodes": "translation_nodes",
+        "icp_runs": "icp_runs",
+        "icp_triggered": "icp_triggered",
+        "pruned": "rotation_pruned",
+    }
+    _DEVICE_MAX_OUTER = 10000   # safety valve of the device loop (chunked
+    #                             runs respect it too); the host loop has none
+
+    def _flush_device_counters(self, st, last):
+        """Add the counter delta since `last` into self.stats (SO3State
+        counters are cumulative across chunks and resumes)."""
+        for f, g in self._DEVICE_COUNTERS.items():
+            cur = int(getattr(st, f))
+            setattr(self.stats, g, getattr(self.stats, g) + cur - last[f])
+            last[f] = cur
+
+    def _sanitize_device_state(self, st):
+        """The sanitizer on a retrieved SO3State when engine.debug_checks is
+        on (chunk boundaries and the final retrieval)."""
+        if self.engine.debug_checks:
+            sanitize.check_device_state(st)
+
+    def _save_device_checkpoint(self, st):
+        ckpt.save_device_state(
+            self.engine.checkpoint_path,
+            state_arrays={f: np.asarray(getattr(st, f)) for f in st._fields},
+            stats=dataclasses.asdict(self.stats),
+            fingerprint=self._fingerprint)
+
+    def _device_call_fn(self):
+        """``call(init_state, max_outer) -> SO3State`` (tensors on the
+        model's device) bound to this model's engine and backend.  The
+        incumbent is read from ``self`` at each call and ignored whenever
+        ``init_state`` is given (the state carries its own)."""
+        e = self.engine
+        if self.src_clusters is not None:
+            search_pcs = self.src_clusters.reps
+            pw, pd = self.src_clusters.weights, self.src_clusters.deltas
+        else:
+            search_pcs, pw, pd = self.pcs, None, None
+        kw = dict(
+            rotation_batch=e.rotation_batch, capacity=e.so3_capacity,
+            rotation_min_span=e.rotation_min_span,
+            translation_min_span=e.translation_min_span,
+            pool_lanes=e.pool_lanes, pool_capacity=e.pool_capacity,
+            ref_compat_gamma=e.ref_compat_gamma,
+            icp_width=e.icp_width, icp_max_iter=e.icp_max_iter,
+            icp_convergence=e.icp_convergence_bnb,
+            icp_trigger_factor=e.icp_trigger_factor,
+            icp_refine_best=e.icp_refine_best,
+            trim_ns=(self.ns if self.trim_keep is not None else None),
+            pool_update=e.pool_update, point_order=self._device_point_order,
+            device=self.device)
+
+        def call(init_state, max_outer):
+            return so3_ops.so3_bnb_device(
+                self.backend, self.pct, self.pcs, search_pcs,
+                np.float32(self.best_sse),
+                np.asarray(self.best_rotation, np.float32),
+                np.asarray(self.best_translation, np.float32),
+                self.sse_threshold, point_weights=pw, point_deltas=pd,
+                icp_search_target=self._icp_search_target,
+                icp_search_src=self._icp_search_src,
+                icp_search_trim=self._icp_search_trim,
+                trim_keep=self.trim_keep, init_state=init_state,
+                max_outer=max_outer, **kw)
+
+        return call
+
+    def _device_adopt(self, st, hist_seen, last=None):
+        """Fold a retrieved (numpy) SO3State into the model: ring entries
+        past `hist_seen`, the incumbent, the counter deltas (when `last` is
+        given); clear the host heap.  The ring keeps no wall-clock, so its
+        entries carry the retrieval's elapsed time."""
+        elapsed = (0.0 if self._t_start is None
+                   else time.time() - self._t_start)
+        n_hist = int(st.hist_len)
+        ring_cap = st.hist_sse.shape[0]
+        if hist_seen >= ring_cap:
+            # Resumed from a saturated ring: hist_len stays at capacity
+            # while improvements after the resume overwrite the last slot,
+            # so that slot counts as unseen.
+            hist_seen = ring_cap - 1
+        for j in range(hist_seen, n_hist):
+            if (self.history
+                    and float(st.hist_sse[j]) >= self.history[-1][1]):
+                continue  # saturated last slot unchanged since the resume
+            self.history.append(
+                (elapsed, float(st.hist_sse[j]),
+                 np.asarray(st.hist_R[j]), np.asarray(st.hist_t[j])))
+        if n_hist == ring_cap:
+            log.debug("device history ring saturated; intermediate "
+                      "improvements were overwritten into the last slot")
+        if float(st.best_sse) < self.best_sse:
+            self.best_sse = float(st.best_sse)
+            self.best_rotation = np.asarray(st.best_R)
+            self.best_translation = np.asarray(st.best_t)
+        self.last_rotation = np.asarray(st.best_R)
+        self.last_translation = np.asarray(st.best_t)
+        if last is not None:
+            self._flush_device_counters(st, last)
+        self._heap = []
+        if self.engine.debug_checks:
+            sanitize.check_device_state(st)
+            sanitize.check_incumbent(self)
+
+    def _bnb_so3_device(self):
+        """The whole nested BnB with the frontier on the device
+        (ops/so3_frontier.py): one call, or with checkpoint_path set, calls
+        of checkpoint_every outer steps each resuming the previous chunk's
+        SO3State, which is saved atomically between chunks.  Every state
+        comes back to the host in one copy (`so3_frontier.to_host`)."""
+        call = self._device_call_fn()
+        e = self.engine
+        st0 = self._resumed_so3_state
+        self._resumed_so3_state = None
+        last = {f: (0 if st0 is None else int(getattr(st0, f)))
+                for f in self._DEVICE_COUNTERS}
+        hist_seen = 0 if st0 is None else int(st0.hist_len)
+        # The step valve is relative to the resume point: merged
+        # checkpoints sum their counters (so3_frontier.merge_states), and an
+        # absolute valve would skip the search they exist for.
+        valve = ((0 if st0 is None else int(st0.outer_steps))
+                 + self._DEVICE_MAX_OUTER)
+        chunk = (e.checkpoint_every
+                 if (e.checkpoint_path and e.checkpoint_every > 0) else 0)
+        if chunk <= 0:
+            st = so3_ops.to_host(call(st0, valve))
+        else:
+            st = st0
+            while True:
+                start = 0 if st is None else int(st.outer_steps)
+                cap = min(start + chunk, valve)
+                st = so3_ops.to_host(call(st, cap))
+                self._sanitize_device_state(st)
+                self._flush_device_counters(st, last)  # updates `last`
+                self._save_device_checkpoint(st)
+                if int(st.outer_steps) < cap or cap >= valve:
+                    break   # gap closed / frontier empty / safety valve
+            last = None  # counters already flushed chunk by chunk
+        self._device_adopt(st, hist_seen, last)
+        # A device search can end without a certificate: the fixed frontier
+        # dropped a subtree, max_outer cut the loop, or a claim leaf closed.
+        # Those subtrees are gone from the device state, so the host loop
+        # re-certifies from the root with the device incumbent, which prunes
+        # fast.  (The JAX package's host-side gap, in float64.)
+        floor = min(float(st.lbs[0]), float(st.dropped_lb),
+                    float(st.closed_lb))
+        gap = -so3_ops.BIG if floor >= so3_ops.INVALID \
+            else float(st.best_sse) - floor
+        self.last_certified_gap = gap
+        if gap > self.sse_threshold:
+            log.warning(
+                f"Device SO(3) search ended with an open certificate gap "
+                f"({gap:.3g} > {self.sse_threshold:.3g}; frontier overflow, "
+                f"max_outer, or a closed claim leaf) — re-certifying with "
+                f"the host loop (raise engine.so3_capacity to avoid this)")
+            self._bnb_so3_host()
         return self.best_sse
 
     def _world_translation(self) -> np.ndarray:
@@ -702,7 +1003,8 @@ class GoICP:
         frame (fgoicp.cpp:10-30)."""
         t0 = time.time()
         self._t_start = t0
-        self._initial_icp()
+        if self._resumed_heap is None and self._resumed_so3_state is None:
+            self._initial_icp()
         self._branch_and_bound_so3()
         self._final_icp()
         self._record_improvement()

@@ -1,6 +1,8 @@
 """The ported slice end to end: `register(Config)` and `GoICP` through both
-packages on the `tests/test_goicp.py::_make_problem` pairs, the CLI, and
-the port's import and device rules.
+packages on the `tests/test_goicp.py::_make_problem` pairs, the device outer
+loop on the config matrix's device rows (`tests/test_config_matrix.py`) and
+on an overflowing SO(3) frontier, the CLI (with --resume and
+--debug-checks), and the port's import and device rules.
 
 Both packages must certify (or both report the same open gap).  Their SSEs
 may differ by up to sse_threshold: the JAX CPU path ranks neighbours by
@@ -23,20 +25,34 @@ from fgoicp_tpu_torch import Config as TConfig, EngineConfig as TEngine
 from fgoicp_tpu_torch import write_ply
 from fgoicp_tpu_torch.__main__ import run as cli_run
 from fgoicp_tpu_torch.models.goicp import GoICP as TGoICP, register as tregister
+from fgoicp_tpu_torch.utils import sanitize as tsanitize
+from test_checkpoint import _pair
+from test_config_matrix import COMBOS, _problem
 from test_goicp import _make_problem, _surface_cloud
 from util import STD_ENGINE, std_engine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU path runs many tiny ops: on one thread a test worker
+    does not oversubscribe the cores that the other workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t_engine(**overrides):
     return TEngine(**dataclasses.asdict(std_engine(**overrides)))
 
 
-def _write_config(tmp_path, pct, pcs, output=""):
+def _write_config(tmp_path, pct, pcs, output="", **extra):
     tgt, src = tmp_path / "target.ply", tmp_path / "source.ply"
     write_ply(str(tgt), pct)
     write_ply(str(src), pcs)
-    engine = "\n".join(f"{k} = {str(v).lower() if isinstance(v, bool) else v}"
-                       for k, v in STD_ENGINE.items())
+    engine = "\n".join(
+        f"{k} = {str(v).lower() if isinstance(v, bool) else repr(v)}"
+        for k, v in dict(STD_ENGINE, **extra).items())
     cfg = tmp_path / "run.toml"
     cfg.write_text(f'[io]\ntarget = "{tgt}"\nsource = "{src}"\n'
                    f'output = "{output}"\n\n[params]\nmse_threshold = 5e-4\n'
@@ -161,16 +177,15 @@ def test_import_never_loads_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-# The ids are those the cases had beside the two serving hand-off cases,
-# which went with the serving port (tests/test_torch_serving.py).
+# The ids are those the cases had beside the cases that went with the code
+# they tested: the serving hand-offs (tests/test_torch_serving.py), the
+# device outer loop, checkpoints and debug_checks (the device rows, the
+# overflow and the CLI cases below, tests/test_torch_so3_frontier.py,
+# test_torch_checkpoint.py and test_torch_sanitize.py).
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine=dict(outer_mode="device")), "item 11"),
     (dict(engine=dict(pool_update="merge")), "item 7"),
     (dict(engine=dict(mesh_cubes=2)), "item 16"),
-    (dict(engine=dict(checkpoint_path="ckpt.npz")), "item 12"),
-    (dict(engine=dict(debug_checks=True)), "item 12"),
-], ids=["kw0-item 11", "kw1-item 7", "kw2-item 16", "kw5-item 12",
-        "kw6-item 12"])
+], ids=["kw1-item 7", "kw2-item 16"])
 def test_unported_options_name_their_roadmap_item(kw, item):
     pct, pcs, _, _ = _make_problem(seed=13, angle=0.5)
     kw = dict(kw)
@@ -205,3 +220,108 @@ def test_refuses_tf32_geometry():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old_tf32
         torch.set_float32_matmul_precision(old_prec)
+
+
+DEVICE_ROWS = [c for c in COMBOS if c[1] == "device" and len(c) == 6]
+
+
+@pytest.mark.parametrize("combo", DEVICE_ROWS, ids=[c[0] for c in DEVICE_ROWS])
+def test_device_outer_loop_matches_jax_on_the_config_matrix(combo):
+    """The config matrix's device rows (tests/test_config_matrix.py) through
+    both packages: each certifies and recovers the known pose; R and t agree
+    with JAX's at atol 2e-3 and best_sse at rtol 1e-4 (atol 1e-9: the
+    exact-subset optimum is ~1e-12, float32 noise)."""
+    label, _, _, backend, coreset, trim = combo
+    pct, pcs, R_true, t_true = _problem()
+    kw = dict(outer_mode="device", source_coreset=coreset, so3_capacity=2048)
+    common = dict(mse_threshold=5e-4, bound_backend=backend, proxy_size=64,
+                  lut_resolution=0.05, trim_fraction=trim)
+    jm = JGoICP(pct, pcs, engine=std_engine(**kw), **common)
+    R_j, t_j = jm.run()
+    tm = TGoICP(pct, pcs, engine=_t_engine(**kw), device="cpu", **common)
+    R_t, t_t = tm.run()
+    for m, R, t in ((jm, R_j, t_j), (tm, R_t, t_t)):
+        assert m.last_certified_gap <= m.sse_threshold * 1.0001, label
+        np.testing.assert_allclose(np.asarray(R), R_true, atol=2e-3)
+        np.testing.assert_allclose(np.asarray(t), t_true, atol=2e-3)
+    np.testing.assert_allclose(R_t, np.asarray(R_j), atol=2e-3)
+    np.testing.assert_allclose(t_t, np.asarray(t_j), atol=2e-3)
+    np.testing.assert_allclose(tm.best_sse, jm.best_sse, rtol=1e-4,
+                               atol=1e-9)
+    assert tm.stats.outer_steps == jm.stats.outer_steps >= 1
+
+
+def test_device_overflow_recertifies_like_jax():
+    """so3_capacity = 8 * rotation_batch: the device frontier spills, the
+    device gap ends open in both packages, the host loop re-certifies from
+    the device incumbent, and both close the gap at the same optimum.  One
+    ICP lane of four per step (icp_refine_best off, the reference's 1.8
+    trigger, 10 iterations) keeps the device search from finding the optimum
+    at its first step; a coarser translation_min_span (0.4) halves the inner
+    nodes of its 31 outer steps."""
+    pct, pcs = _pair()
+    kw = dict(outer_mode="device", so3_capacity=16, icp_width=4,
+              icp_refine_best=False, icp_trigger_factor=1.8, icp_max_iter=10,
+              translation_min_span=0.4)
+    runs = []
+    for make, engine, extra in ((JGoICP, std_engine, {}),
+                                (TGoICP, _t_engine, dict(device="cpu"))):
+        m = make(pct, pcs, mse_threshold=5e-4, proxy_size=64,
+                 engine=engine(**kw), **extra)
+        device_gaps = []
+        real_seed = m.seed_heap
+
+        def seed_heap(m=m, real=real_seed, gaps=device_gaps):
+            gaps.append(m.last_certified_gap)
+            return real()
+
+        m.seed_heap = seed_heap
+        m.run()
+        runs.append((m, device_gaps))
+    (jm, j_gaps), (tm, t_gaps) = runs
+    assert len(j_gaps) == len(t_gaps) == 1
+    assert t_gaps[0] > tm.sse_threshold and j_gaps[0] > jm.sse_threshold
+    np.testing.assert_allclose(t_gaps[0], j_gaps[0], rtol=1e-4)
+    for m in (jm, tm):
+        assert m.last_certified_gap <= m.sse_threshold
+    np.testing.assert_allclose(tm.best_sse, jm.best_sse, rtol=1e-4,
+                               atol=1e-9)
+    assert tm.stats.outer_steps == jm.stats.outer_steps
+
+
+def test_cli_resume_and_debug_checks(tmp_path, monkeypatch):
+    """--debug-checks runs the sanitizer; --resume loads
+    engine.checkpoint_path when it exists and finishes from it."""
+    pct, pcs, R_true, t_true = _make_problem(seed=0, angle=2.2)
+    ckpt_path = tmp_path / "bnb.npz"
+    out = tmp_path / "result.toml"
+    cfg = _write_config(tmp_path, pct, pcs, output=str(out),
+                        checkpoint_path=str(ckpt_path), checkpoint_every=1)
+    checks, loads = [], []
+    real_check, real_load = tsanitize.check_heap, TGoICP.load_checkpoint
+
+    def check_heap(heap, *args):
+        checks.append(1)
+        return real_check(heap, *args)
+
+    def load_checkpoint(self, path):
+        loads.append(path)
+        return real_load(self, path)
+
+    monkeypatch.setattr(tsanitize, "check_heap", check_heap)
+    monkeypatch.setattr(TGoICP, "load_checkpoint", load_checkpoint)
+    args = ["-c", str(cfg), "--device", "cpu"]
+    assert cli_run(args + ["--resume", "--debug-checks"]) == 0
+    assert checks and not loads   # nothing to resume yet
+    assert ckpt_path.exists()
+    first = tomllib.load(open(out, "rb"))["result"]
+    n_checks = len(checks)
+    assert cli_run(args + ["--resume"]) == 0
+    assert loads == [str(ckpt_path)] and len(checks) == n_checks
+    result = tomllib.load(open(out, "rb"))["result"]
+    np.testing.assert_allclose(np.asarray(result["rotation"]), R_true,
+                               atol=1e-3)
+    np.testing.assert_allclose(result["translation"], t_true, atol=1e-3)
+    assert result["mse"] < 5e-4
+    np.testing.assert_allclose(result["sse"], first["sse"], rtol=1e-3,
+                               atol=1e-9)
