@@ -149,7 +149,23 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      pair three times at once, plain, --debug-nans (the same result TOML)
      and --profile DIR (a Chrome trace naming nn_kernel and
      bounds_lanes_kernel); `python -m fgoicp_tpu_torch.scripts.kernel_check
-     --grid reduced` (every row passes).
+     --grid reduced` (every row passes);
+ 15. the experiment tools of fgoicp_tpu_torch/scripts, called as functions
+     (`tools_phase`): 15a step_decomp at its defaults (the pieces sum to no
+     more than a step); 15b micro_step at its defaults, or, where its drain
+     guard refuses them, at the --steps the refusal names (the bare kernel
+     no more than a pooled step); 15c mxu_experiment (nn_min at 1 M and 4 M
+     x 4,096, the norm-expansion errors printed); 15d minplus_experiment
+     (the float64 gate, the kernel bit-equal at [262,144 x 1,024], the EDT
+     fields equal); 15e hard_pairs --pair synth in host and device outer
+     mode (certified, the seeding's gap open, rotation_children > 0, more
+     translation nodes than phase 5's trimmed search-only; the certified
+     pose in the known pose's basin); 15f serving_experiment ragged and
+     fallback (every pair certified; a fallback that launches
+     fused_bounds_lanes_trimmed).
+     Every launch shape the tools give a kernel is held against its plain
+     version afterwards (the plain version once a shape), with its time,
+     bound and library time.
 Every launch counter is set to 0 just before each path and read just
 after; the phase lines also give the NN kernels' launches per (M, T).  With
 --profile, one warm run each of trimmed search-only, search-only, grouped
@@ -330,6 +346,18 @@ def cuda_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(torch, fn):
+    """(fn(), its milliseconds on the card by CUDA events), one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def bound(flops, nbytes):
@@ -1959,6 +1987,8 @@ def mesh_run_summary(label, kind, model, R, t, wall, truth, launched):
 # meshes and neither phase runs it; kernel 6 only for a LUT engine, 13c).
 SHARD_KERNELS = ("nn_argmin", "nn_min", "fused_bounds_lanes", "fused_bounds",
                  "minplus_1d")
+# Phase 15 holds every kernel its tools launch, the trimmed lanes too.
+TOOL_KERNELS = SHARD_KERNELS + ("fused_bounds_lanes_trimmed",)
 # The most distinct launch shapes a run keeps per kernel (the first seen).
 SHARD_SHAPES = 12
 
@@ -1974,18 +2004,20 @@ def _shape_key(a):
 
 
 class ShardLaunches:
-    """While on (`with`), kernels 1-4's wrappers keep a copy of the
+    """While on (`with`), the wrappers of `kernels` keep a copy of the
     arguments of their first launch at every distinct shape, as the path
     gives them; `check` then holds each against its plain version on the
     card.  The wrappers are swapped for forwarding objects, so the ops and
-    the wrappers' own `.launches` counting see the same functions."""
+    the wrappers' own `.launches` counting see the same functions.  With
+    plain_reps 0 the plain version runs once, its time that call's."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, kernels=SHARD_KERNELS, plain_reps=2):
         from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
         self.torch = torch
+        self.plain_reps = plain_reps
         self.mods = {name: cuda_nn if name.startswith("nn_") else
                      cuda_minplus if name == "minplus_1d" else cuda_bounds
-                     for name in SHARD_KERNELS}
+                     for name in kernels}
         self.calls = {}   # (label, name, shapes) -> (fn, args, kwargs)
         self.shapes = {}  # (label, name) -> distinct launch shapes seen
         self.label = None
@@ -2030,10 +2062,11 @@ class ShardLaunches:
 
     def _plain(self, fn, args, kw):
         """(plain version's call, shape text, flops, bytes, counted launch
-        or None) of a launch.  For the pruned kernels the counted launch
-        runs the kernel with its counters (`pair_counts`); flops are then
-        the full scan's, every (lane, point, proxy) pair or (line, i, j)
-        triple."""
+        or None, flops besides the search) of a launch.  For the pruned
+        kernels the counted launch runs the kernel with its counters
+        (`pair_counts`); flops are then the full scan's, every (lane,
+        point, proxy) pair or (line, i, j) triple, plus the trimmed
+        kernel's bisection (27 compare passes over both term arrays)."""
         import inspect
         torch = self.torch
         from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
@@ -2047,13 +2080,13 @@ class ShardLaunches:
             plain = getattr(cuda_nn, name + "_plain")
             return (lambda: plain(q, p), f"{m}x{t}", 8.0 * m * t,
                     12.0 * (m + t) + 4 * m * (2 if name == "nn_argmin"
-                                              else 1), None)
+                                              else 1), None, 0.0)
         if name == "minplus_1d":
             g, res = a["g"], a["res"]
             lines, n = g.shape
             return (lambda: cuda_minplus.minplus_1d_plain(g, res),
                     f"{lines}x{n}", 2.0 * lines * n * n, 8.0 * lines * n,
-                    lambda c: cuda_minplus._launch(g, res, c))
+                    lambda c: cuda_minplus._launch(g, res, c), 0.0)
         base = a["base"]
         ns = base.shape[1]
         proxies, buckets = cuda_bounds._search_args(
@@ -2066,7 +2099,19 @@ class ShardLaunches:
              if a["point_weights"] is None else a["point_weights"])
         n_prox = proxies.shape[0]
         order = a["point_order"]
-        if name == "fused_bounds":
+        extra = 0.0
+        if name == "fused_bounds_lanes_trimmed":
+            lanes, n_drop = a["gids"].shape[0], a["n_drop"]
+            plain = lambda: cuda_bounds.fused_bounds_lanes_trimmed_plain(
+                base, a["gids"], a["t_lanes"], proxies, a["gam_ub"], gam_lb,
+                a["gam_t_lanes"], slack, w, n_drop)
+            counted = lambda c: cuda_bounds._launch_lanes_trimmed(
+                base, a["gids"], a["t_lanes"], a["gam_ub"], gam_lb,
+                a["gam_t_lanes"], w, slack, n_drop, buckets, order, c)
+            shape = (f"G{base.shape[0]} L{lanes} ns{ns} P{n_prox} "
+                     f"n_drop{n_drop}")
+            extra = 2.0 * 27 * lanes * ns
+        elif name == "fused_bounds":
             tc = a["t_centers"]
             lanes = tc.shape[0] * tc.shape[1]
             plain = lambda: cuda_bounds.fused_bounds_plain(
@@ -2084,9 +2129,9 @@ class ShardLaunches:
                 base, a["gids"], a["t_lanes"], a["gam_ub"], gam_lb,
                 a["gam_t_lanes"], w, slack, buckets, order, c)
             shape = f"G{base.shape[0]} L{lanes} ns{ns} P{n_prox}"
-        return (plain, shape, PAIR_FLOPS * lanes * ns * n_prox,
+        return (plain, shape, PAIR_FLOPS * lanes * ns * n_prox + extra,
                 4.0 * (base.numel() + 2 * base.shape[0] * ns + ns
-                       + 3 * n_prox + 5 * lanes + 2 * lanes), counted)
+                       + 3 * n_prox + 5 * lanes + 2 * lanes), counted, extra)
 
     def check(self):
         """Every recorded launch against its plain version (NN and
@@ -2100,13 +2145,19 @@ class ShardLaunches:
         torch = self.torch
         out = []
         for (label, name, _, _), (fn, args, kw) in self.calls.items():
-            plain, shape, flops, nbytes, counted = self._plain(fn, args, kw)
+            plain, shape, flops, nbytes, counted, extra = self._plain(
+                fn, args, kw)
             kernel = lambda: fn(*args, **kw)
+            if self.plain_reps:
+                want = plain()
+                plain_ms = cuda_ms(torch, plain, self.plain_reps)
+            else:
+                want, plain_ms = timed_once(torch, plain)
             if name in ("nn_argmin", "nn_min"):
                 err = nn_equal(torch, f"{label} {name} [{shape}]", kernel(),
-                               plain())
+                               want)
             elif name == "minplus_1d":
-                got, want = kernel(), plain()
+                got = kernel()
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
                     raise AssertionError(
@@ -2116,13 +2167,13 @@ class ShardLaunches:
                 err = 0.0
             else:
                 err = check_bounds(torch, f"{label} {name} [{shape}]",
-                                   kernel(), plain())
+                                   kernel(), want)
             full_bound_ms, bound_by = bound(flops, nbytes)
             work = None
             if counted is not None:
                 work = pair_counts(torch, counted)
                 done = (2.0 * work[0] if name == "minplus_1d" else
-                        PAIR_FLOPS * work[0] + BOX_FLOPS * work[1])
+                        PAIR_FLOPS * work[0] + BOX_FLOPS * work[1] + extra)
                 bound_ms, bound_by = bound(done, nbytes)
             else:
                 bound_ms = full_bound_ms
@@ -2148,7 +2199,7 @@ class ShardLaunches:
                             library_ms=library_ms,
                             of=len(self.shapes[(label, name)]),
                             max_abs_err=err, ms=cuda_ms(torch, kernel, 10),
-                            plain_ms=cuda_ms(torch, plain, 2),
+                            plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
                             full_scan_bound_ms=full_bound_ms, work=work))
         self.calls.clear()
@@ -2757,6 +2808,154 @@ def kernel_check_phase(smi_line):
         f"rows in {res['seconds']!r} s")
 
 
+def tools_phase(torch, counted, launches, reset, trimmed_nodes, smi_line):
+    """Phase 15: the experiment tools of fgoicp_tpu_torch/scripts, called as
+    functions at their defaults, each with every launch counter set to 0
+    just before it and read just after, and every launch shape it gives the
+    kernels held against the plain versions afterwards (`ShardLaunches`,
+    the plain version once a shape: NN and minplus_1d bit for bit, bounds
+    at phase 2's rtol 2e-4 / atol 2e-5), with its time, bound and library
+    time.  Gates: 15a step_decomp's pieces sum to no more than a step; 15b
+    micro_step's bare kernel to no more than a pooled step; 15c
+    mxu_experiment launches nn_min (its norm-expansion errors are printed,
+    not gated); 15d minplus_experiment's f64 gate, its kernel bit-equal to
+    the plain version at [262,144 x 1,024] and the two EDT fields equal;
+    15e hard_pairs --pair synth in host and device outer mode: certified,
+    the seeding's gap open, rotation_children > 0 and more translation
+    nodes than phase 5's trimmed search-only (`trimmed_nodes`), and the
+    certified pose in the known pose's basin (R < 5e-3, t < 5e-3 x span
+    after one converged trimmed ICP); 15f serving_experiment ragged and
+    fallback: every pair certified, and the fallback mode takes a fallback
+    that launches fused_bounds_lanes_trimmed."""
+    from fgoicp_tpu_torch.scripts import (
+        hard_pairs, micro_step, minplus_experiment, mxu_experiment,
+        serving_experiment, step_decomp)
+    rec = ShardLaunches(torch, TOOL_KERNELS, plain_reps=0)
+
+    def tool(label, call, need):
+        reset()
+        t_run = time.time()
+        with rec.record(label):
+            out = call()
+        torch.cuda.synchronize()
+        wall = time.time() - t_run
+        launched = {fn.__name__: fn.launches for fn in counted}
+        for key, n in launched.items():
+            launches[key] += n
+        say(f"{label} ({smi_line}): {wall!r} s, launches {launched}")
+        missing = [k for k in need if launched[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels {missing} never "
+                                 f"launched")
+        return out
+
+    sd = tool("15a step_decomp", lambda: step_decomp.run([]),
+              ["fused_bounds_lanes"])
+    say(f"15a step_decomp ({smi_line}): {json.dumps(sd)}")
+    if not sd["pieces_sum_ms"] <= sd["step_ms"]:
+        raise AssertionError(f"15a: the pieces ({sd['pieces_sum_ms']!r} "
+                             f"ms) exceed a step ({sd['step_ms']!r} ms)")
+    def micro():
+        try:
+            return micro_step.run([])
+        except SystemExit as exc:
+            # The drain guard: at the JAX defaults the pool may drain at or
+            # before --steps; then the refusal names the largest clean
+            # --steps, and the tool runs there.
+            msg = str(exc)
+            if "pool drains at step" not in msg:
+                raise
+            steps = msg.rsplit("--steps <= ", 1)[1]
+            say(f"15b micro_step at its defaults refused: {msg}; again at "
+                f"--steps {steps}")
+            return micro_step.run(["--steps", steps])
+
+    ms_ = tool("15b micro_step", micro, ["fused_bounds_lanes"])
+    say(f"15b micro_step ({smi_line}): {json.dumps(ms_)}")
+    if not ms_["kernel_ms_per_step"] <= ms_["pooled_ms_per_step"]:
+        raise AssertionError("15b: the bare kernel exceeds a pooled step")
+    rows = tool("15c mxu_experiment", lambda: mxu_experiment.run([]),
+                ["nn_min"])
+    for r in rows:
+        say(f"15c mxu_experiment Q {r['q']} x P {r['p']} {r['mode']} "
+            f"({smi_line}): {r['wall_ms']!r} ms, {r['mq_per_s']!r} Mq/s, "
+            f"{r['tops_9op']!r} Top/s (9 ops a pair), max |d2 - vpu| "
+            f"{r['max_abs_err']!r}")
+    mp = tool("15d minplus_experiment", lambda: minplus_experiment.run([]),
+              ["minplus_1d"])
+    say(f"15d minplus_experiment ({smi_line}): {json.dumps(mp)}")
+    if not (mp["f64_check"]["ok"] and mp["aligned"]["bits_equal"]
+            and mp["field_build"]["fields_equal"]):
+        raise AssertionError("15d: the f64 gate, the aligned bits or the "
+                             "fields failed")
+    for outer in ("host", "device"):
+        # The device loop once: it repeats the host loop's hard search.
+        flags = ["--pair", "synth", "--runs", "2" if outer == "host" else "1"]
+        if outer == "device":
+            flags.append("--device-outer")
+        lines = tool(f"15e hard_pairs {outer}",
+                     lambda: hard_pairs.run(flags),
+                     ["nn_argmin", "nn_min", "fused_bounds_lanes_trimmed"])
+        for ln in lines:
+            say(f"15e hard_pairs {outer} run {ln['run']} ({smi_line}): "
+                f"{json.dumps(ln)}")
+            hard = (ln["seed_sse"] > ln["sse_threshold"]
+                    and ln["rotation_children"] > 0
+                    and ln["nodes"] > trimmed_nodes)
+            # The pose gate on the certified pose's basin (phase 11's
+            # rule): the engine's final ICP stops at icp_convergence_final,
+            # short of the trimmed optimum.  The stand-in's planes leave no
+            # other basin within sse_threshold (workloads.hard_synth), so
+            # a certificate of another basin is a fault of the search.
+            right = (ln["basin_r_err"] < 5e-3
+                     and ln["basin_t_err_span"] < 5e-3)
+            if not (ln["certified"] and right and hard):
+                raise AssertionError(
+                    f"15e hard_pairs {outer}: certified {ln['certified']}, "
+                    f"basin R err {ln['basin_r_err']!r}, t err/span "
+                    f"{ln['basin_t_err_span']!r}, seed sse "
+                    f"{ln['seed_sse']!r} > {ln['sse_threshold']!r}, "
+                    f"rotation_children {ln['rotation_children']}, nodes "
+                    f"{ln['nodes']} > {trimmed_nodes} (phase 5's trimmed "
+                    f"search-only)")
+    for mode in ("ragged", "fallback"):
+        lines = tool(
+            f"15f serving_experiment {mode}",
+            lambda: serving_experiment.run(["--mode", mode, "--runs", "2"]),
+            ["nn_argmin", "nn_min"] + (["fused_bounds_lanes_trimmed"]
+                                       if mode == "fallback" else []))
+        for ln in lines:
+            say(f"15f serving_experiment {mode} run {ln['run']} "
+                f"({smi_line}): {ln['pairs']} pairs in {ln['wall_s']!r} s, "
+                f"{ln['pairs_per_s']!r} pairs/s, {ln['certified']} "
+                f"certified, {ln['fallbacks']} fallbacks, "
+                f"{ln['exact_recoveries']} exact recoveries, seeding "
+                f"{ln['seed_seconds']!r} s, fallbacks "
+                f"{ln['fallback_seconds']!r} s")
+            if ln["certified"] != ln["pairs"]:
+                raise AssertionError(f"15f {mode}: {ln['certified']} of "
+                                     f"{ln['pairs']} pairs certified")
+            if mode == "fallback" and ln["fallbacks"] < 1:
+                raise AssertionError("15f fallback: no pair took the "
+                                     "fallback")
+    held = {}
+    for k in rec.check():
+        held[k["name"]] = held.get(k["name"], 0) + 1
+        say(f"{k['label']} launch {k['name']} [{k['shape']}] (of {k['of']} "
+            f"shapes) ({smi_line}): max_abs_err {k['max_abs_err']!r} "
+            f"against its plain version, kernel {k['ms']!r} ms, plain "
+            f"{k['plain_ms']!r} ms, bound {k['bound_ms']!r} ms "
+            f"({k['bound_by']}), library {k['library_ms']!r} ms"
+            f"{shard_work(k)}")
+    missing = [k for k in TOOL_KERNELS if k != "fused_bounds" and
+               not held.get(k)]
+    if missing:
+        raise AssertionError(f"phase 15: kernels {missing} held at no "
+                             f"shape")
+    say(f"phase 15 ({smi_line}): launch shapes held against the plain "
+        f"versions: {held}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2935,6 +3134,10 @@ def main() -> int:
                 {"host": search, "device": dsearch}, smi_line)
     cli_phase(smi_line)
     kernel_check_phase(smi_line)
+
+    # Phase 15: the experiment tools.
+    tools_phase(torch, counted, launches, reset,
+                tsearch["warm"]["model"].stats.translation_nodes, smi_line)
 
     for krow in kernels:
         krow["launches"] = launches[krow["name"]]

@@ -5,7 +5,8 @@ Newton polar iteration and the same reflection fix, so that both packages
 agree also on rank-2 correspondences (a general SVD would pick other
 singular vectors there).  The fix is keyed on the polar factor's
 determinant (see closest_rotation), which differs from the JAX package
-only on rank-1 input, where that package can return a reflection.  Parity with the reference's
+where det(M) is rounding noise, and there that package can return a
+reflection.  Parity with the reference's
 IterativeClosestPoint3D::procrustes (icp3d.cu:110-172).
 
 `torch.linalg.inv_ex` is used instead of `torch.linalg.inv` so that no
@@ -59,9 +60,12 @@ def closest_rotation(abt: torch.Tensor) -> torch.Tensor:
 
     The fix is keyed on det(Q), which is +-1, where the JAX package keys it
     on det(M).  The two agree wherever det(M) is not rounding noise (the
-    polar factor of a full-rank M has the sign of det(M)); on exactly
-    rank-1 correspondences the sign of det(M) is noise and the JAX key can
-    return a reflection (ROADMAP Queue 3), which this key never does.
+    polar factor of a full-rank M has the sign of det(M)).  On rank-1
+    correspondences, and on rank-2 ones whose smallest singular value is
+    rounding (a trimmed ICP on a short, nearly planar arc), the sign of
+    det(M) is noise while the rank guard's ridge decides the sign of
+    det(Q), and the JAX key can return a reflection (ROADMAP Queue 3),
+    which this key never does.
     """
     m = abt.transpose(-1, -2)
     q = _polar_orthogonal(m)

@@ -11,8 +11,13 @@ it a phase's device time is billed to whichever phase next reads the host.
     python -m fgoicp_tpu_torch.scripts.profile_phases [--workload smoke]
         [--device cuda] [--runs 2] [engine flags]
 
-One JSON line per run (the first is cold).  Workloads: see `workloads`
-(the real scans need --data).
+Engine flags: the JAX tool's seven with its defaults, --source-coreset 0
+(no source clusters), --pool-lanes 1024, --rotation-batch 16,
+--icp-max-iter 100, --icp-width 16, --pool-capacity 32768 and
+--icp-search-subsample 2048; and --translation-min-span,
+--rotation-min-span, --pool-update, --outer-mode, --no-multi-start.  One
+JSON line per run (the first is cold), with the seven settings under
+"engine".  Workloads: see `workloads` (the real scans need --data).
 """
 
 from __future__ import annotations
@@ -71,6 +76,13 @@ def timed(model, sync):
     return acc, calls, steps
 
 
+# scripts/profile_phases.py's engine flags and defaults.
+JAX_TOOL_DEFAULTS = {"source-coreset": 0, "pool-lanes": 1024,
+                     "rotation-batch": 16, "icp-max-iter": 100,
+                     "icp-width": 16, "pool-capacity": 32768,
+                     "icp-search-subsample": 2048}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="smoke", choices=workloads.NAMES)
@@ -81,13 +93,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--proxy-size", type=int, default=1024)
     ap.add_argument("--runs", type=int, default=2)
-    for flag, kind in (("source-coreset", int), ("pool-lanes", int),
-                       ("rotation-batch", int), ("icp-max-iter", int),
-                       ("icp-width", int), ("pool-capacity", int),
-                       ("icp-search-subsample", int),
-                       ("translation-min-span", float),
-                       ("rotation-min-span", float)):
-        ap.add_argument(f"--{flag}", type=kind, default=None,
+    # The JAX tool's engine flags with its defaults (source clusters off).
+    for flag, default in JAX_TOOL_DEFAULTS.items():
+        ap.add_argument(f"--{flag}", type=int, default=default,
+                        help=f"engine setting (default {default})")
+    for flag in ("translation-min-span", "rotation-min-span"):
+        ap.add_argument(f"--{flag}", type=float, default=None,
                         help="engine override (default: EngineConfig's)")
     ap.add_argument("--pool-update", default=None, choices=("sort", "merge"))
     ap.add_argument("--outer-mode", default=None, choices=("host", "device"))
@@ -98,19 +109,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def engine_of(args):
-    """EngineConfig with the given overrides."""
+    """EngineConfig with the tool's engine settings (the JAX tool's seven
+    always; the span, update and outer-mode flags when given)."""
     from ..config import EngineConfig
-    kw = {k: v for k, v in (
-        ("source_coreset", args.source_coreset),
-        ("pool_lanes", args.pool_lanes),
-        ("rotation_batch", args.rotation_batch),
-        ("icp_max_iter", args.icp_max_iter), ("icp_width", args.icp_width),
-        ("pool_capacity", args.pool_capacity),
-        ("icp_search_subsample", args.icp_search_subsample),
+    kw = {k.replace("-", "_"): getattr(args, k.replace("-", "_"))
+          for k in JAX_TOOL_DEFAULTS}
+    kw.update({k: v for k, v in (
         ("translation_min_span", args.translation_min_span),
         ("rotation_min_span", args.rotation_min_span),
         ("pool_update", args.pool_update), ("outer_mode", args.outer_mode))
-        if v is not None}
+        if v is not None})
     if args.no_multi_start:
         kw["icp_multi_start"] = False
     return EngineConfig(**kw)
@@ -143,10 +151,13 @@ def main(argv=None) -> int:
         sync()
         wall = time.perf_counter() - t0
         s = model.stats
+        e = model.engine
         icp_s = sum(acc[k] for k in _ICP_PHASES)
         icp_steps = sum(steps[k] for k in _ICP_PHASES)
         print(json.dumps({
             "run": run, "workload": args.workload, "device": str(dev),
+            "engine": {k: getattr(e, k) for k in (
+                f.replace("-", "_") for f in JAX_TOOL_DEFAULTS)},
             "setup_s": setup, "wall_s": wall, "mse": float(model.mse),
             "sse": float(model.best_sse),
             "certified": bool(model.last_certified_gap is not None and

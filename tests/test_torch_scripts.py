@@ -116,6 +116,36 @@ def test_profile_phases_tiny(tmp_path):
     assert bad.returncode != 0 and "--data" in bad.stderr
 
 
+def test_profile_phases_engine_flags_reach_the_engine():
+    """The JAX tool's seven engine flags, with its defaults, go into
+    EngineConfig; a tiny run at --icp-max-iter 3 --pool-lanes 64 reports
+    them and stops every ICP call within 3 Procrustes steps."""
+    from fgoicp_tpu_torch.scripts import profile_phases
+    args = profile_phases.build_parser().parse_args([])
+    eng = profile_phases.engine_of(args)
+    assert (eng.source_coreset, eng.pool_lanes, eng.rotation_batch,
+            eng.icp_max_iter, eng.icp_width, eng.pool_capacity,
+            eng.icp_search_subsample) == (0, 1024, 16, 100, 16, 32768, 2048)
+    flags = ["--source-coreset", "64", "--pool-lanes", "64",
+             "--rotation-batch", "2", "--icp-max-iter", "3", "--icp-width",
+             "4", "--pool-capacity", "4096", "--icp-search-subsample", "32"]
+    eng = profile_phases.engine_of(profile_phases.build_parser().parse_args(
+        flags))
+    assert (eng.source_coreset, eng.pool_lanes, eng.rotation_batch,
+            eng.icp_max_iter, eng.icp_width, eng.pool_capacity,
+            eng.icp_search_subsample) == (64, 64, 2, 3, 4, 4096, 32)
+    proc = _tool("profile_phases", *SMALL, "--runs", "1", "--no-multi-start",
+                 "--icp-max-iter", "3", "--pool-lanes", "64")
+    assert proc.returncode == 0, proc.stderr
+    (line,) = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+    assert line["engine"]["icp_max_iter"] == 3
+    assert line["engine"]["pool_lanes"] == 64
+    assert line["engine"]["source_coreset"] == 0
+    for phase in ("initial_icp", "final_icp"):
+        assert 0 < line["procrustes_steps"][phase] <= 3 * line["calls"][phase]
+
+
 def test_proxy_sweep_tiny():
     proc = _tool("proxy_sweep", *SMALL, "--runs", "1", "--sizes", "64", "32")
     assert proc.returncode == 0, proc.stderr
