@@ -84,7 +84,7 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      trimmed search-only through register(Config), cold then warm, each
      certified at the known pose, launching the NN kernels and its bound
      kernel, with best_sse within sse_threshold of phase 4's / 5's host
-     loop, walls, counters and the device loop's host reads side by side;
+     loop, walls, counters and the runs' host reads side by side;
      10c both checkpoint kinds: a search-only run with checkpoint_every = 1
      into build/chip_smoke/ killed after its second checkpoint (the host
      loop's first when it takes one step) and resumed by a fresh GoICP with
@@ -1425,8 +1425,8 @@ def serving_phase(torch, dev, data, counted, launches, reset, nn_shapes,
 def compare_modes(label, device_runs, host_runs, smi_line):
     """Phase 10a/b's comparison with the host loop's phase on the same pair:
     the device loop's best_sse must lie within sse_threshold of the host
-    loop's; walls, counters and the device loop's host reads side by
-    side."""
+    loop's; walls, counters and the runs' host reads (the request's
+    `utils/trace` record) side by side."""
     for run in ("cold", "warm"):
         d, h = device_runs[run]["model"], host_runs[run]["model"]
         if not abs(d.best_sse - h.best_sse) <= d.sse_threshold:
@@ -1442,7 +1442,8 @@ def compare_modes(label, device_runs, host_runs, smi_line):
         f"rotation_children {ds.rotation_children} vs "
         f"{hs.rotation_children}, translation_nodes {ds.translation_nodes} "
         f"vs {hs.translation_nodes}, icp_runs {ds.icp_runs} vs "
-        f"{hs.icp_runs}; device-loop host reads per run {dw['host_reads']}; "
+        f"{hs.icp_runs}; host reads per run {dw['host_reads']} vs "
+        f"{hw['host_reads']}; "
         f"best_sse {dw['model'].best_sse!r} vs {hw['model'].best_sse!r}")
 
 
@@ -1546,7 +1547,7 @@ def overflow_phase(torch, dev, pair, counted, launches, reset, ref_sse):
     side by side, a search of many outer steps.  Returns the second runs'
     rank_summary by mode, phase 11's single-host references."""
     from fgoicp_tpu_torch import EngineConfig, GoICP
-    from fgoicp_tpu_torch.ops import so3_frontier
+    from fgoicp_tpu_torch.utils import trace
 
     def make(**engine):
         return GoICP(pair[0], pair[1], mse_threshold=1e-3, device=dev,
@@ -1579,7 +1580,7 @@ def overflow_phase(torch, dev, pair, counted, launches, reset, ref_sse):
         f"{wall!r} s, best_sse {model.best_sse!r} (host search-only "
         f"{ref_sse!r}), R err {r_err!r}, t err/span {t_err!r}, outer_steps "
         f"{s.outer_steps} in all, translation_nodes {s.translation_nodes}, "
-        f"device-loop host reads {so3_frontier.so3_bnb_device.host_reads}, "
+        f"host reads {trace.requests()[-1].host_reads}, "
         f"launches {launched}")
     if len(device_gaps) != 1 or not device_gaps[0] > model.sse_threshold:
         raise AssertionError("overflow: the device gap did not end open, or "
@@ -1598,7 +1599,6 @@ def overflow_phase(torch, dev, pair, counted, launches, reset, ref_sse):
     walls, many = {}, {}
     for mode in ("device", "host"):
         for _ in range(2):
-            so3_frontier.so3_bnb_device.host_reads = 0
             t_run, cpu = time.time(), time.process_time()
             model = make(outer_mode=mode, so3_capacity=16384)
             R, t = model.run()
@@ -1606,13 +1606,13 @@ def overflow_phase(torch, dev, pair, counted, launches, reset, ref_sse):
             wall, cpu = time.time() - t_run, time.process_time() - cpu
             walls[mode] = (wall, model.stats.outer_steps,
                            model.stats.translation_nodes, model.best_sse,
-                           so3_frontier.so3_bnb_device.host_reads)
+                           trace.requests()[-1].host_reads)
             if not model.last_certified_gap <= model.sse_threshold:
                 raise AssertionError(f"many-step {mode}: not certified")
             many[mode] = rank_summary(model, R, t, wall, pair, cpu)
     say(f"many-step search (OVERFLOW_ENGINE, so3_capacity 16384), second "
         f"run of each: (wall s, outer_steps, translation_nodes, best_sse, "
-        f"device-loop host reads) device {walls['device']!r}, host "
+        f"host reads) device {walls['device']!r}, host "
         f"{walls['host']!r}; known-pose error (R, t/span) of the certified "
         f"pose device {many['device']['pose_err']!r}, host "
         f"{many['host']['pose_err']!r}, of its basin's converged ICP device "
@@ -2721,10 +2721,13 @@ def cli_phase(smi_line):
     """Phase 14b: the CLI on the smoke pair, search-only, three processes
     started together: no flag, --debug-nans and --profile DIR.  Gates: each
     exits 0; --debug-nans writes the result TOML of the run without it
-    (elapsed time and rate aside); the --profile trace parses and names the
-    port's kernels (nn_kernel, bounds_lanes_kernel)."""
+    (elapsed time and rate aside); the --profile trace parses, names the
+    port's kernels (nn_kernel, bounds_lanes_kernel) and holds the program's
+    ranges of the request, its ICPs and its reads (utils/trace.py)."""
     import shutil
     import tomllib
+
+    from fgoicp_tpu_torch.utils import trace as prog_trace
     prof = WORK / "cli_profile"
     shutil.rmtree(prof, ignore_errors=True)
     runs = {"plain": [], "debug-nans": ["--debug-nans"],
@@ -2779,9 +2782,18 @@ def cli_phase(smi_line):
     if set(names) != {"nn_kernel", "bounds_lanes_kernel"}:
         raise AssertionError(f"CLI --profile: the trace's device kernels "
                              f"{names} do not name the port's kernels")
+    ranges = {}
+    for e in trace.get("traceEvents", []):
+        name = str(e.get("name", ""))
+        if name.startswith(prog_trace.PREFIX) and e.get("cat") != "kernel":
+            span = prog_trace.parse_range(name)[0]
+            ranges[span] = ranges.get(span, 0) + 1
+    if not {"register", "icp", "read"} <= set(ranges):
+        raise AssertionError(f"CLI --profile: the program's ranges {ranges} "
+                             f"lack the request, its ICPs or its reads")
     say(f"CLI --profile ({smi_line}): {len(trace['traceEvents'])} trace "
-        f"events, device kernel events by name {names}; --debug-nans: "
-        f"result equal to the run without it")
+        f"events, device kernel events by name {names}, program ranges by "
+        f"span {ranges}; --debug-nans: result equal to the run without it")
 
 
 def kernel_check_phase(smi_line):
@@ -2967,7 +2979,7 @@ def main() -> int:
     from fgoicp_tpu_torch.kernels import build
     from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
     from fgoicp_tpu_torch.ops import geometry as geo
-    from fgoicp_tpu_torch.ops import so3_frontier
+    from fgoicp_tpu_torch.utils import trace
 
     # Phase 1: the card, the versions, the kernel build.
     smi = subprocess.run(
@@ -3022,7 +3034,6 @@ def main() -> int:
             fn.launches = 0
         for fn in nn_fns:
             fn.shapes.clear()
-        so3_frontier.so3_bnb_device.host_reads = 0
 
     def nn_shapes():
         """The NN kernels' launches per (M, T) since the last reset."""
@@ -3043,7 +3054,7 @@ def main() -> int:
             launched = {fn.__name__: fn.launches for fn in counted}
             for key, n in launched.items():
                 launches[key] += n
-            host_reads = so3_frontier.so3_bnb_device.host_reads
+            host_reads = trace.requests()[-1].host_reads
             r_err, t_err = pose_errors(R, t, truth)
             s = model.stats
             say(f"{label} {run}: wall {wall!r} s (register), run "
@@ -3053,7 +3064,7 @@ def main() -> int:
                 f"{s.translation_nodes}, rotation_children "
                 f"{s.rotation_children}, outer_steps {s.outer_steps}, "
                 f"inner_loop_steps {s.inner_loop_steps}, icp_runs "
-                f"{s.icp_runs}, device-loop host reads {host_reads}, "
+                f"{s.icp_runs}, host reads {host_reads}, "
                 f"launches {launched}, NN launches by shape {nn_shapes()}")
             check_result(label, model, R, t, r_err, t_err)
             out[run] = dict(model=model, launched=launched, wall=wall,

@@ -17,7 +17,11 @@ and the [io] visualization PLY when set.
 --profile traces `model.run()` (under --serve, `register` of the batch)
 with the CPU activity, and the CUDA one on a card, and writes a Chrome
 trace to DIR/trace_rank<R>.json, R the process's rank (0 without a mesh):
-under a mesh each rank writes its own.
+under a mesh each rank writes its own.  It turns on the program's ranges
+(utils/trace.py), so the trace shows the request, its spans ("fgoicp.icp",
+"fgoicp.construct", ...) and its host reads ("fgoicp.read") over the
+kernels.  -v logs the finished request's record after the registration:
+its span seconds, host reads and host wait, counts and kernel launches.
 
 A mesh of more than one rank runs one process per rank.  Under torchrun
 (WORLD_SIZE set) each process is a rank; otherwise this command starts the
@@ -32,7 +36,6 @@ import argparse
 import contextlib
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -42,6 +45,7 @@ from .io import load_cloud, write_ply
 from .models.goicp import GoICP
 from .utils import debug
 from .utils import logging as log
+from .utils import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,8 +119,13 @@ def _profiled(args):
     @contextlib.contextmanager
     def traced():
         os.makedirs(args.profile, exist_ok=True)
-        with profile(activities=activities) as prof:
-            yield
+        ranges = trace.enabled()
+        trace.enable()
+        try:
+            with profile(activities=activities) as prof:
+                yield
+        finally:
+            trace.enable(ranges)
         prof.export_chrome_trace(path)
         log.info(f"Profile trace written to {path}")
     return traced()
@@ -159,11 +168,12 @@ def _run(args, argv) -> int:
             os.path.exists(cfg.engine.checkpoint_path):
         model.load_checkpoint(cfg.engine.checkpoint_path)
     with _profiled(args):
-        t0 = time.time()
+        t0 = trace.now()
         R, t = model.run()
-        elapsed = time.time() - t0
+        elapsed = trace.now() - t0
     log.info(f"Registration completed in {elapsed:.3f}s "
              f"({model.stats.cubes_per_second:.0f} cubes/s)")
+    log.debug(trace.summary(trace.requests()[-1]))
 
     if cfg.io.output and writer:
         _write_result(cfg.io.output, R, t, model, elapsed)
@@ -206,14 +216,15 @@ def _run_serve(cfg: Config, args, pct, writer: bool = True) -> int:
         trim_fraction=(cfg.params.trim_fraction if cfg.params.trim else 0.0),
         device=args.device)
     with _profiled(args):
-        t0 = time.time()
+        t0 = trace.now()
         results = srv.register(batch)
-        elapsed = time.time() - t0
+        elapsed = trace.now() - t0
     n_cert = sum(r.certified for r in results)
     n_fb = sum(r.fallback_used for r in results)
     log.info(f"Registered {len(results)} pairs in {elapsed:.3f}s "
              f"({len(results) / elapsed:.2f} pairs/s): {n_cert} certified, "
              f"{n_fb} BnB fallbacks")
+    log.debug(trace.summary(trace.requests()[-1]))
     for p, r in zip(paths, results):
         log.debug(f"{p}: mse={r.mse:.3g} certified={r.certified}",
                   "\n\tRotation:\n", r.R, "\n\tTranslation: ", r.t)

@@ -65,6 +65,11 @@ sets the device.
 `engine.pool_update="merge"` keeps the pooled frontier sorted by invariant
 and merges each step's children into it (ops/pool_frontier.py), in the host
 and device loops and on a mesh; "sort" is the default.
+
+Tracing (utils/trace.py): `register` and `GoICP.run` called on its own
+open a request record, which a model's construction ("construct" span),
+its inner-BnB calls ("inner_bnb", counting their bound evaluations as
+"inner_nodes") and its host reads join.
 """
 
 from __future__ import annotations
@@ -74,7 +79,6 @@ import functools
 import heapq
 import itertools
 import math
-import time
 from typing import Optional
 
 import numpy as np
@@ -95,6 +99,7 @@ from ..parallel import sharding as psh
 from ..utils import checkpoint as ckpt
 from ..utils import logging as log
 from ..utils import sanitize
+from ..utils import trace
 from . import icp as icp_model
 
 BIG = 1e10  # reference M_INF (common.hpp:18)
@@ -177,6 +182,7 @@ class GoICP:
     [N, 3] arrays (converted to float32 tensors on `device`).
     """
 
+    @trace.spanned("construct")
     def __init__(self, pct, pcs, lut_resolution: float = 0.005,
                  mse_threshold: float = 1e-3,
                  engine: Optional[EngineConfig] = None,
@@ -204,6 +210,7 @@ class GoICP:
                        else _resolve_device(device))
         if self.mesh is not None and self.mesh.size == 1:
             self.mesh = None   # a 1 x 1 mesh is the single-device path
+        trace.watch_mesh(self.mesh)
         dev = self.device
         self.ns, self.nt = len(pcs), len(pct)
         self.norm = geo.Normalization(torch.tensor(pct, device=dev),
@@ -295,8 +302,9 @@ class GoICP:
                 self.trim_keep is None or e.source_coreset > 0):
             self.src_clusters = coreset_ops.build_weighted(
                 self.pcs, size=src_k, seed=e.seed + 2)
+            radius = trace.to_host(torch.max(self.src_clusters.deltas))
             log.debug(f"Source clusters: {src_k} reps, max radius "
-                      f"{float(torch.max(self.src_clusters.deltas)):.4f}")
+                      f"{float(radius):.4f}")
 
         # The order in which the proxy bound kernels' warps take the source
         # points the frontier bounds (the clusters on the pooled path when
@@ -389,7 +397,7 @@ class GoICP:
                 self.mesh, active=torch.as_tensor(active, device=self.device),
                 max_iter=mi, convergence_threshold=convergence,
                 trim_keep=self.trim_keep)
-            return sse.cpu().numpy(), R.cpu().numpy(), t.cpu().numpy()
+            return trace.to_host(sse, R, t)
         target, src, trim = self.pct, self.pcs, self.trim_keep
         if search:
             if self._icp_search_target is not None:
@@ -403,7 +411,7 @@ class GoICP:
         if target is not self.pct or src is not self.pcs:
             sse = icp_model.exact_sse_batched(self.pct, self.pcs, R, t,
                                               trim_keep=self.trim_keep)
-        return sse.cpu().numpy(), R.cpu().numpy(), t.cpu().numpy()
+        return trace.to_host(sse, R, t)
 
     def _icp_padded(self, R0, t0, n_active, convergence, search=False,
                     width=None, max_iter=None):
@@ -558,6 +566,7 @@ class GoICP:
                 self._record_improvement()
         return eval_list
 
+    @trace.spanned("inner_bnb")
     def _evaluate_children(self, children):
         """One inner-BnB call (pooled, or grouped by frontier_mode): ub-pass
         (fixed rotation, groups [0:G)) and lb-pass (groups [G:2G)) for all
@@ -613,11 +622,11 @@ class GoICP:
         # search early; the dropped_lb clamp keeps it sound when pool
         # overflow discarded a node that could hold the min-lb witness.
         lb_raw = torch.minimum(st.best_ub[g:], st.best_err[g:])
-        ub_g, bt_g, lb_raw_g, drop_g, R_np = (
-            a.cpu().numpy() for a in (st.best_ub[:g], st.best_t[:g], lb_raw,
-                                      st.dropped_lb[g:], R))
-        evaluated = int(torch.sum(st.evaluated))
-        dropped = int(torch.sum(st.dropped))
+        ub_g, bt_g, lb_raw_g, drop_g, R_np, evaluated, dropped = \
+            trace.to_host(st.best_ub[:g], st.best_t[:g], lb_raw,
+                          st.dropped_lb[g:], R, torch.sum(st.evaluated),
+                          torch.sum(st.dropped))
+        evaluated, dropped = int(evaluated), int(dropped)
         ub, best_t = ub_g[:n], bt_g[:n]
         lb_raw, drop_clamp = lb_raw_g[:n], drop_g[:n]
         lb = np.minimum(lb_raw, drop_clamp)
@@ -628,6 +637,7 @@ class GoICP:
                 f"bound(s); the search stays exact but slower — increase "
                 f"engine.pool_capacity")
         self.stats.translation_nodes += evaluated
+        trace.count("inner_nodes", evaluated)
         self.stats.inner_loop_steps += st.steps
         self.stats.dropped_nodes += dropped
         return R_np, ub, best_t, lb
@@ -678,7 +688,7 @@ class GoICP:
                           "\n\tTranslation: ", self._world_translation())
 
     def _record_improvement(self):
-        elapsed = 0.0 if self._t_start is None else time.time() - self._t_start
+        elapsed = 0.0 if self._t_start is None else trace.now() - self._t_start
         self.history.append((elapsed, self.best_sse,
                              np.asarray(self.best_rotation),
                              np.asarray(self.best_translation)))
@@ -892,6 +902,8 @@ class GoICP:
         for f, g in self._DEVICE_COUNTERS.items():
             cur = int(getattr(st, f))
             setattr(self.stats, g, getattr(self.stats, g) + cur - last[f])
+            if g == "translation_nodes":
+                trace.count("inner_nodes", cur - last[f])
             last[f] = cur
 
     def _sanitize_device_state(self, st):
@@ -968,7 +980,7 @@ class GoICP:
         given); clear the host heap.  The ring keeps no wall-clock, so its
         entries carry the retrieval's elapsed time."""
         elapsed = (0.0 if self._t_start is None
-                   else time.time() - self._t_start)
+                   else trace.now() - self._t_start)
         n_hist = int(st.hist_len)
         ring_cap = st.hist_sse.shape[0]
         if hist_seen >= ring_cap:
@@ -1054,22 +1066,25 @@ class GoICP:
         return self.best_sse
 
     def _world_translation(self) -> np.ndarray:
-        return self.norm.restore_translation(
+        return trace.to_host(self.norm.restore_translation(
             self._tensor(self.best_rotation),
-            self._tensor(self.best_translation)).cpu().numpy()
+            self._tensor(self.best_translation)))
 
     # ------------------------------------------------------------------
+    @trace.entry("register")
     def run(self):
         """Full pipeline; returns (R, t) as numpy in the ORIGINAL (world)
-        frame (fgoicp.cpp:10-30)."""
-        t0 = time.time()
+        frame (fgoicp.cpp:10-30).  wall_seconds and the history's times are
+        on the tracer's monotonic clock."""
+        trace.watch_mesh(self.mesh)
+        t0 = trace.now()
         self._t_start = t0
         if self._resumed_heap is None and self._resumed_so3_state is None:
             self._initial_icp()
         self._branch_and_bound_so3()
         self._final_icp()
         self._record_improvement()
-        self.stats.wall_seconds = time.time() - t0
+        self.stats.wall_seconds = trace.now() - t0
         t_world = self._world_translation()
         log.info(f"Searching over! Best Error: {self.best_sse}",
                  "\n\tRotation:\n", self.best_rotation,
@@ -1081,6 +1096,7 @@ class GoICP:
         return self.best_sse / self.ns
 
 
+@trace.entry("register")
 def register(config: Config, pct=None, pcs=None, device="cuda"):
     """Config-driven entry (mirrors main.cpp:41-53); returns (model, R, t)."""
     if pct is None:

@@ -8,7 +8,9 @@ threshold, up to max_iter, and return the better of the last two iterates.
 
 G problems run in lockstep with per-lane `done` masks.  The JAX package's
 `lax.while_loop` is a Python loop here whose condition is read on the host
-once per iteration.
+once per iteration (`trace.to_host`).  Inside a request (utils/trace.py) an
+`icp_batched` call is an "icp" span that counts its lockstep iterations
+and lanes, and `exact_sse_batched` an "icp.rescore" span.
 
 Target sharding (parallel/bnb.py::icp_sharded): with `target_axis`, a mesh
 axis of parallel/sharding.py, pct is still the FULL target, which every
@@ -29,6 +31,7 @@ from ..ops import nn as nn_ops
 from ..ops import procrustes as proc_ops
 from ..parallel.sharding import sharded
 from ..utils import debug
+from ..utils import trace
 
 BIG = 1e10  # reference M_INF
 NO_VOTE = 2 ** 31 - 1   # a shard's index vote when it does not hold the min
@@ -113,6 +116,7 @@ def _nn_query(pct_l, cur, target_axis, offset):
     return best_d2, target_axis.pmin(vote)
 
 
+@trace.spanned("icp")
 @debug.checked("icp_batched")
 def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
                 t0: torch.Tensor, active=None, max_iter: int = 100,
@@ -151,7 +155,7 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
     R, t, last_R, last_t = R0, t0, R0, t0
     done = ~active
     it = 0
-    while it < max_iter and not bool(torch.all(done)):
+    while it < max_iter and not bool(trace.to_host(torch.all(done))):
         run = ~done
         # Correspondences on the current (pre-update) points (icp3d.cu:146),
         # carried from the previous iteration's single NN pass: the SSE
@@ -179,6 +183,8 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
         conv = (last_sse - sse) <= convergence_threshold * last_sse
         done = done | (run & conv)
         it += 1
+    trace.count("icp_iterations", it)
+    trace.count("icp_lanes", g)
 
     # Return the better of the last two iterates (icp3d.cu:106-107).
     better = sse < last_sse
@@ -186,6 +192,7 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
             _masked(better, t, last_t))
 
 
+@trace.spanned("icp.rescore")
 @debug.checked("exact_sse_batched")
 def exact_sse_batched(pct: torch.Tensor, pcs: torch.Tensor, R: torch.Tensor,
                       t: torch.Tensor, trim_keep=None, target_axis=None,

@@ -36,12 +36,15 @@ ragged batch's per-pair subsample rows riding along), and the per-pair
 results are all-gathered, so every rank holds every pair's result.  Pairs
 are independent, so the seeding itself has no collective.  A BnB fallback
 runs on the same mesh (GoICP(mesh=...)), every rank in lockstep.
+
+Tracing (utils/trace.py): `register` opens one request record, of kind
+"serve", which its seeding ("seed" span) and its fallbacks ("fallback"
+spans, each holding its GoICP's construction and run) join.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -51,6 +54,7 @@ from ..config import EngineConfig
 from ..ops import coreset as coreset_ops
 from ..ops import geometry as geo
 from ..utils import logging as log
+from ..utils import trace
 from . import icp as icp_model
 from .goicp import GoICP, _check_fp32_matmul, _resolve_device, _resolve_mesh
 
@@ -254,6 +258,7 @@ class RegistrationService:
             rows.append(np.tile(perm, -(-s_sub // n_real))[:s_sub])
         return np.stack(rows).astype(np.int64)
 
+    @trace.spanned("seed")
     def _seed_call(self, sources: np.ndarray, trim_keep, point_weights=None):
         """The batched seeding on the device, results copied to the host in
         one transfer.  Seeding runs at the BnB-trigger eps (0.005), not the
@@ -290,10 +295,11 @@ class RegistrationService:
                             scale[:, None], mu_s], dim=1)
         if cubes is not None:
             packed = cubes.all_gather(packed)[:b]
-        host = packed.cpu().numpy()
+        host = trace.to_host(packed)
         return (host[:, 0], host[:, 1:10].reshape(b, 3, 3), host[:, 10:13],
                 host[:, 13], host[:, 14:17])
 
+    @trace.spanned("fallback")
     def _fallback(self, source, seed_pose=None):
         """Full nested-BnB registration of one uncertified pair, sharing one
         proxy coreset of the centred target across fallbacks (GoICP
@@ -318,6 +324,7 @@ class RegistrationService:
             mse=float(model.mse), certified=bool(certified),
             fallback_used=True)
 
+    @trace.entry("serve")
     def register(self, sources, fallback: bool = True):
         """Register a batch of source clouds; returns [B] PairResults.
 
@@ -330,7 +337,10 @@ class RegistrationService:
         mse_threshold); it cannot combine with trim_fraction.  All pairs
         seed in one batched call; pairs left uncertified run the full BnB
         one by one unless `fallback=False` (they come back certified=False).
+        stats.seed_seconds and fallback_seconds are on the tracer's
+        monotonic clock.
         """
+        trace.watch_mesh(self.mesh)
         clouds = None  # the ragged batch's clouds, as given
         weights = None
         if not isinstance(sources, np.ndarray):
@@ -374,17 +384,17 @@ class RegistrationService:
         # runs too, so seeding certifies exactly what its fallback would.
         thr = ns_real * self.mse_threshold
 
-        t0 = time.time()
+        t0 = trace.now()
         sse_c, R_b, t_b, scale, mu_s = self._seed_call(
             sources, trim_keep, weights)
-        self.stats.seed_seconds += time.time() - t0
+        self.stats.seed_seconds += trace.now() - t0
 
         # Normalized-frame SSE (module docstring) against the root-gap
         # certificate sse_norm <= ns * mse_threshold.
         sse_norm = sse_c * scale * scale
         certified = sse_norm <= thr
         results: list[PairResult] = []
-        t1 = time.time()
+        t1 = trace.now()
         for i in range(b):
             if certified[i] or not fallback:
                 # World frame: R (s - mu_s) + t ~ target - mu_t, so
@@ -398,7 +408,7 @@ class RegistrationService:
                 source = clouds[i] if clouds is not None else sources[i]
                 results.append(self._fallback(source,
                                               seed_pose=(R_b[i], t_b[i])))
-        self.stats.fallback_seconds += time.time() - t1
+        self.stats.fallback_seconds += trace.now() - t1
         n_cert = int(np.sum(certified))
         self.stats.pairs += b
         self.stats.certified_by_seeding += n_cert

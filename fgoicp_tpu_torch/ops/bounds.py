@@ -45,6 +45,7 @@ from . import geometry as geo
 from . import nn as nn_ops
 from ..parallel.sharding import sharded
 from ..utils import debug
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,7 +331,7 @@ def evaluate_bounds(backend: Backend, pcs: torch.Tensor,
         lb, ub = cuda_bounds.fused_bounds(
             base.contiguous(), t_centers.contiguous(), backend.buckets,
             gam_ub.contiguous(),
-            gam_t.contiguous(), float(backend.coreset.eps),
+            gam_t.contiguous(), float(trace.to_host(backend.coreset.eps)),
             point_weights=(None if point_weights is None
                            else point_weights.contiguous()),
             gam_lb=gam_lb.contiguous(), point_order=point_order)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import nn as nn_ops
 
 
@@ -42,11 +43,14 @@ def _sq_dist_to(points: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
 
 
+@trace.spanned("construct.fps")
 def farthest_point_sample(points: torch.Tensor, k: int,
                           seed: int = 0) -> torch.Tensor:
     """Greedy farthest-point subsample: k int64 indices maximizing the min
-    spacing.  O(k * n); the loop never waits for the device."""
+    spacing.  O(k * n); the loop never waits for the device.  Inside a
+    request a "construct.fps" span that counts its k - 1 steps."""
     n = points.shape[0]
+    trace.count("fps_steps", k - 1)
     start = seed % n
     idx = torch.empty(k, dtype=torch.int64, device=points.device)
     idx[0] = start

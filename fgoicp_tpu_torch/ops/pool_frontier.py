@@ -71,6 +71,7 @@ from . import bounds as bounds_ops
 from . import cuda_bounds
 from . import geometry as geo
 from ..parallel.sharding import any_live, sharded
+from ..utils import trace
 
 INVALID = 1e30
 BIG = 1e10
@@ -184,7 +185,7 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
         point_weights = point_weights.contiguous()
     if not lut:
         # One read-back per call; the kernel takes the slack as a float32.
-        slack = float(backend.coreset.eps)
+        slack = float(trace.to_host(backend.coreset.eps))
     share = None
     if err_share_from is not None:
         share = torch.as_tensor(err_share_from, device=dev).long()

@@ -7,7 +7,9 @@ answer to a fixed dispatch cost per outer step.  Here the frontier is a set
 of tensors that stay on the model's device, and a Python loop runs the JAX
 body step for step: one host read per outer step (the loop condition and the
 incumbent that the pooled inner BnB takes as a float), and one copy of the
-whole state to the host when the caller retrieves it (`to_host`).
+whole state to the host when the caller retrieves it (`to_host`).  Both,
+and every other copy of a state tensor (`as_numpy`), go through
+`utils/trace.to_host`, which counts them in the request's host reads.
 
 Semantics, as in the JAX package and the host loop (reference
 fgoicp/fgoicp.cpp:32-100):
@@ -64,6 +66,7 @@ import torch
 from . import geometry as geo
 from . import pool_frontier
 from ..models import icp as icp_model
+from ..utils import trace
 
 # The float32 sentinels, as Python floats holding their float32 values, so
 # that host comparisons with values read back from the state are exact.
@@ -113,7 +116,7 @@ _INT_FIELDS = frozenset((
 def as_numpy(a) -> np.ndarray:
     """A numpy array of a tensor (copied to the host) or an array-like."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        return trace.to_host(a.detach())
     return np.asarray(a)
 
 
@@ -270,7 +273,7 @@ def to_host(s: SO3State) -> SO3State:
     """The state's tensors as numpy arrays, in one device-to-host copy."""
     flat = [t.reshape(-1).view(torch.float32) if f in _INT_FIELDS
             else t.reshape(-1) for f, t in zip(SO3State._fields, s)]
-    buf = torch.cat(flat).cpu().numpy()
+    buf = trace.to_host(torch.cat(flat))
     out, k = [], 0
     for f, t in zip(SO3State._fields, s):
         a = buf[k:k + t.numel()]
@@ -327,9 +330,9 @@ def so3_bnb_device(backend, pct, pcs, search_pcs, best_sse0, best_R0,
     this rank's point shards, pct stays the full target (the ICP and the
     exact SSE search this rank's rows of it).
 
-    so3_bnb_device.host_reads counts the loop's reads of the frontier (one
-    per outer step and one at exit); the inner BnB and the ICPs read the
-    host once per step / iteration as well.
+    The loop reads the frontier once per outer step and once at exit; the
+    inner BnB and the ICPs read the host once per step / iteration as well
+    (each a host read of the request, utils/trace.py).
     """
     if (1 if cubes_axis is None else cubes_axis.size) != n_cubes:
         raise ValueError("n_cubes must be the size of cubes_axis")
@@ -383,9 +386,8 @@ def so3_bnb_device(backend, pct, pcs, search_pcs, best_sse0, best_R0,
         # not the loop (certified_gap).
         if steps >= max_outer:
             break
-        best_f, lb0, gap = torch.stack(
-            [s.best_sse, s.lbs[0], s.best_sse - s.lbs[0]]).tolist()
-        so3_bnb_device.host_reads += 1
+        best_f, lb0, gap = trace.to_host(torch.stack(
+            [s.best_sse, s.lbs[0], s.best_sse - s.lbs[0]])).tolist()
         if not (gap > thr32 and lb0 < INVALID):
             break
 
@@ -535,6 +537,3 @@ def so3_bnb_device(backend, pct, pcs, search_pcs, best_sse0, best_R0,
             hist_step=hist_step, hist_len=hist_len)
         steps += 1
     return s
-
-
-so3_bnb_device.host_reads = 0

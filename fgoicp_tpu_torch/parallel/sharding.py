@@ -52,6 +52,7 @@ from typing import Optional
 import torch
 
 from ..utils import logging as log
+from ..utils import trace
 
 CUBES_AXIS = "cubes"
 POINTS_AXIS = "points"
@@ -155,14 +156,14 @@ def any_live(active: torch.Tensor, axes) -> bool:
     """Whether any group of any rank is live: the lockstep vote of the
     sharded BnB loops, the live count psum'd over each sharded axis of
     `axes` in turn (JAX's psum over a tuple of axis names).  Without one,
-    the local test, and no call."""
+    the local test, and no call.  One host read (`trace.to_host`)."""
     axes = [a for a in axes if sharded(a)]
     if not axes:
-        return bool(torch.any(active))
+        return bool(trace.to_host(torch.any(active)))
     n = torch.sum(active)
     for axis in axes:
         n = axis.psum(n)
-    return int(n) > 0
+    return int(trace.to_host(n)) > 0
 
 
 class Mesh:
