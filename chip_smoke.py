@@ -41,19 +41,25 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      nn_min 6,000 x 4,096: bit-equal, each with its slice plan, and no
      torch.cdist where its [M, T] matrix would hold 2^31 elements or more)
      and fused_bounds_lanes at a serving fallback's shape (2,048 source
-     clusters against the shared 1,024-point coreset);
+     clusters against the shared 1,024-point coreset); and
+     farthest_point_sample's indices equal to the plain loop's at the main
+     paths' FPS shapes (17,953 -> 1,024, 3,037 -> 1,024, 8,000 -> 2,048,
+     6,000 -> 4,096 and 6,000 -> 1,024), its ms a call, us a step and
+     latency bound (k - 1 steps at its step at n = 1), and the kernel
+     launches of a warm bunny-size GoICP construction;
   3. run the default main path, `register(Config)` on cuda, on a seeded
      asymmetric 18,000 / 3,000-point pair with a known pose: it must
-     certify (last_certified_gap <= sse_threshold) and recover the pose
-     (R max-abs error < 5e-3, t error < 5e-3 x span); cold, then warm;
+     certify (last_certified_gap <= sse_threshold), recover the pose
+     (R max-abs error < 5e-3, t error < 5e-3 x span) and launch the FPS
+     kernel; cold, then warm;
   4. the same with icp_multi_start = false, the search-only form of the
-     path, which must also bound translation nodes and launch the NN and
-     lane kernels;
+     path, which must also bound translation nodes and launch the NN,
+     lane and FPS kernels;
   5. trimmed registration (trim = true, trim_fraction = 0.3) on a seeded
      partial-overlap pair (20,000 target / 10,000 source points, 22.5 % of
      the source outside the target's part of the curve), default and
-     search-only; both must certify and recover the pose, and the
-     search-only run must launch the trimmed lane kernel;
+     search-only; both must certify, recover the pose and launch the FPS
+     kernel, and the search-only run must launch the trimmed lane kernel;
   6. the grouped inner scheduler (frontier_mode = "grouped", search-only) on
      the 18,000 / 3,000 pair; it must certify, recover the pose and launch
      the grid kernel;
@@ -1139,6 +1145,97 @@ def compare_minplus(torch, norm, resolution=LUT_RESOLUTION):
                                        total["nbytes"])[0]
     return row("minplus_1d", "fgoicp_tpu_torch/csrc/minplus.cu",
                "fgoicp_tpu/ops/pallas_minplus.py:75", case)
+
+
+# The FPS kernel's work a (point, step): 3 sub, 3 mul, 2 add and the min,
+# and about 17 issued instructions with the loads, the store and the
+# compare (counted from csrc/fps.cu).  One block walks every step, on one
+# SM: beside the card's bound a call prints that SM's issue time (an issue
+# ceiling, from the kernel's own count), and the latency bound: k - 1 times
+# the kernel's step at n = 1, which is a block barrier and two warp
+# reductions with no point to update (FPS_FLOOR_K steps, CUDA events).
+FPS_OPS, FPS_INSTRS = 9.0, 17.0
+SM_INSTR_RATE = INSTR_RATE / 132
+FPS_FLOOR_K = 4096
+# (n, k) of the main paths' FPS calls: the bunny proxies (17,953 -> 1,024)
+# and clusters (3,037 -> 1,024), a serving fallback's clusters (8,000 ->
+# 2,048), the serving seeding coreset (6,000 -> 4,096) and the fallbacks'
+# shared proxy (6,000 -> 1,024).
+FPS_SHAPES = ((17953, 1024), (3037, 1024), (8000, 2048), (6000, 4096),
+              (6000, 1024))
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def compare_fps(torch):
+    """Phase 2, `farthest_point_sample`: the kernel's indices against the
+    plain loop's on the same CUDA tensors (equal) at FPS_SHAPES (points of
+    a seeded surface cloud), kernel and plain ms a call by CUDA events, us a
+    step, the layout, the card's bound and the latency bound (k - 1 steps
+    at the measured step floor); one SM's issue time is printed only; then
+    a warm GoICP construction of a bunny-size pair (17,953 / 3,037 points)
+    timed by the host clock, and again under torch.profiler for its kernel
+    launches and FPS launches.  Returns the JSON row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fgoicp_tpu_torch import GoICP
+    from fgoicp_tpu_torch.ops import cuda_fps
+
+    kernel, plain = (cuda_fps.farthest_point_sample,
+                     cuda_fps.farthest_point_sample_plain)
+    dev = torch.device("cuda")
+    cloud = surface_cloud(np.random.default_rng(1), 24000)
+    one = torch.from_numpy(np.ascontiguousarray(cloud[:1])).to(dev)
+    floor_us = 1e3 * cuda_ms(torch, lambda: kernel(one, FPS_FLOOR_K), 20) / (
+        FPS_FLOOR_K - 1)
+    say(f"kernel farthest_point_sample: step floor {floor_us!r} us (n = 1, "
+        f"{FPS_FLOOR_K} steps: one block barrier and two warp reductions)")
+    cases = []
+    for n, k in FPS_SHAPES:
+        p = torch.from_numpy(np.ascontiguousarray(cloud[:n])).to(dev)
+        got, want = kernel(p, k), plain(p, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"farthest_point_sample [{n}->{k}]: {int((got != want).sum())}"
+                f" indices differ from the plain loop's")
+        ms = cuda_ms(torch, lambda: kernel(p, k), 20)
+        plain_ms = cuda_ms(torch, lambda: plain(p, k), 1)
+        case = report("farthest_point_sample", f"{n}->{k}", 0.0, ms,
+                      plain_ms, FPS_OPS * n * (k - 1), 12.0 * n + 8.0 * k)
+        case.update(layout=cuda_fps.plan_layout(n),
+                    us_per_step=1e3 * ms / (k - 1), step_floor_us=floor_us,
+                    latency_bound_ms=floor_us * (k - 1) / 1e3)
+        sm_issue_ms = FPS_INSTRS * n * (k - 1) / SM_INSTR_RATE * 1e3
+        say(f"kernel farthest_point_sample [{n}->{k}]: indices equal to the "
+            f"plain loop's, layout {case['layout']}, {case['us_per_step']!r} "
+            f"us a step, latency bound {case['latency_bound_ms']!r} ms, "
+            f"one SM's issue ceiling {sm_issue_ms!r} ms")
+        cases.append(case)
+
+    pct_np, pcs_np = known_transform_pair(cloud, 17953, 3037)[:2]
+    construct = lambda: GoICP(pct_np, pcs_np, mse_threshold=1e-3,
+                              device=dev)
+    construct()
+    torch.cuda.synchronize()
+    t_run = time.time()
+    construct()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t_run) * 1e3
+    fps0 = kernel.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        construct()
+        torch.cuda.synchronize()
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key in LAUNCH_KEYS)
+    say(f"bunny-size GoICP construction (17953 / 3037, warm): "
+        f"{wall_ms!r} ms, {n_launch} kernel launches, "
+        f"{kernel.launches - fps0} of them FPS")
+    return row("farthest_point_sample", "fgoicp_tpu_torch/csrc/fps.cu",
+               "none (fgoicp_tpu/ops/coreset.py: a lax.fori_loop)",
+               dict(cases=cases, construct_ms=wall_ms,
+                    construct_launches=n_launch,
+                    construct_fps_launches=kernel.launches - fps0))
 
 
 def write_config(name, pct_np, pcs_np, params):
@@ -2977,7 +3074,8 @@ def main() -> int:
 
     from fgoicp_tpu_torch import register
     from fgoicp_tpu_torch.kernels import build
-    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
+    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_fps, cuda_minplus
+    from fgoicp_tpu_torch.ops import cuda_nn
     from fgoicp_tpu_torch.ops import geometry as geo
     from fgoicp_tpu_torch.utils import trace
 
@@ -3018,6 +3116,7 @@ def main() -> int:
                               trim_norm.pct.contiguous(),
                               trim_norm.pcs.contiguous(), serving)
     kernels.append(compare_minplus(torch, norm))
+    kernels.append(compare_fps(torch))
     del norm, trim_norm
     torch.cuda.empty_cache()
 
@@ -3025,7 +3124,8 @@ def main() -> int:
     counted = (cuda_nn.nn_argmin, cuda_nn.nn_min,
                cuda_bounds.fused_bounds_lanes,
                cuda_bounds.fused_bounds_lanes_trimmed,
-               cuda_bounds.fused_bounds, cuda_minplus.minplus_1d)
+               cuda_bounds.fused_bounds, cuda_minplus.minplus_1d,
+               cuda_fps.farthest_point_sample)
     launches = {fn.__name__: 0 for fn in counted}
     nn_fns = (cuda_nn.nn_argmin, cuda_nn.nn_min)
 
@@ -3080,18 +3180,24 @@ def main() -> int:
                 raise AssertionError(f"{label} {run}: kernels {missing} "
                                      f"never launched on the main path")
 
-    drive("default", cfg, pct_in, pcs_in, pair, icp_multi_start=True)
+    default = drive("default", cfg, pct_in, pcs_in, pair,
+                    icp_multi_start=True)
+    require("default", default, ["farthest_point_sample"], nodes=False)
     search = drive("search-only", cfg, pct_in, pcs_in, pair,
                    icp_multi_start=False)
     require("search-only", search,
-            ["nn_argmin", "nn_min", "fused_bounds_lanes"])
+            ["nn_argmin", "nn_min", "fused_bounds_lanes",
+             "farthest_point_sample"])
 
-    drive("trimmed default", tcfg, tpct_in, tpcs_in, trim_pair,
-          icp_multi_start=True)
+    tdefault = drive("trimmed default", tcfg, tpct_in, tpcs_in, trim_pair,
+                     icp_multi_start=True)
+    require("trimmed default", tdefault, ["farthest_point_sample"],
+            nodes=False)
     tsearch = drive("trimmed search-only", tcfg, tpct_in, tpcs_in, trim_pair,
                     icp_multi_start=False)
     require("trimmed search-only", tsearch,
-            ["nn_argmin", "nn_min", "fused_bounds_lanes_trimmed"])
+            ["nn_argmin", "nn_min", "fused_bounds_lanes_trimmed",
+             "farthest_point_sample"])
 
     grouped = drive("grouped search-only", cfg, pct_in, pcs_in, pair,
                     icp_multi_start=False, frontier_mode="grouped")
@@ -3202,9 +3308,7 @@ def profile_calls(torch, label, call, kernel):
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in events)
-    n_launch = sum(e.count for e in averages
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC"))
+    n_launch = sum(e.count for e in averages if e.key in LAUNCH_KEYS)
     mine = [e for e in events if kernel in e.key]
     say(f"profile {label} (warm): wall {wall!r} s, device busy "
         f"{busy_us / 1e6!r} s ({100 * busy_us / 1e6 / wall!r} %), kernel "

@@ -63,6 +63,8 @@ _SIGNATURES = {
                                     _P),
     # (g, res, lines, n, counts, out, stream)
     "fgoicp_minplus_1d": (_P, _F, _I, _I, _P, _P, _P),
+    # (points, n, k, start, layout, smem_limit, scratch, idx_out, stream)
+    "fgoicp_fps": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -17,8 +17,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import trace
 from . import nn as nn_ops
+# The plain loop on the CPU, one kernel launch on the card; inside a
+# request a "construct.fps" span that counts its k - 1 steps.
+from .cuda_fps import farthest_point_sample
 
 
 class ProxyCoreset(NamedTuple):
@@ -36,33 +38,6 @@ class SourceClusters(NamedTuple):
     reps: torch.Tensor     # [K, 3] representatives
     weights: torch.Tensor  # [K] member counts (float)
     deltas: torch.Tensor   # [K] cluster radii
-
-
-def _sq_dist_to(points: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    d = points - c
-    return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-
-
-@trace.spanned("construct.fps")
-def farthest_point_sample(points: torch.Tensor, k: int,
-                          seed: int = 0) -> torch.Tensor:
-    """Greedy farthest-point subsample: k int64 indices maximizing the min
-    spacing.  O(k * n); the loop never waits for the device.  Inside a
-    request a "construct.fps" span that counts its k - 1 steps."""
-    n = points.shape[0]
-    trace.count("fps_steps", k - 1)
-    start = seed % n
-    idx = torch.empty(k, dtype=torch.int64, device=points.device)
-    idx[0] = start
-    mind2 = _sq_dist_to(points, points[start])
-    for i in range(1, k):
-        # First index among equal maxima, kept on the device (index_select
-        # rather than indexing with a 0-d tensor, which reads it back).
-        far = torch.argmax(mind2).reshape(1)
-        idx[i:i + 1] = far
-        mind2 = torch.minimum(
-            mind2, _sq_dist_to(points, points.index_select(0, far)))
-    return idx
 
 
 def build_weighted(points: torch.Tensor, size: int = 1024,

@@ -15,14 +15,17 @@ The grid is the JAX package's KERNELCHECK grid, extended:
   * `minplus_1d` on seeded lines at the three pass lengths of a 0.002 field;
   * the device mesh's shard shapes: lanes at G 256, L 1,024, ns 512, P
     1,024; the grid at G 256, B 32, ns 1,500, P 1,024; `nn_argmin` 48,000 x
-    9,000 and `nn_min` 24,000 x 9,000.
-Tolerances: NN and `minplus_1d` bit for bit (and the winner's rescore equal
-to its d2); bounds rtol 2e-4 / atol 2e-5 with lb <= ub.  On the card each
-row also gives the kernel's mean ms (CUDA events) and, for the pruned bound
-kernels, the (point, proxy) pairs and (point, box) tests its counters
-report.  `--grid reduced` keeps one point of each family, `tiny` shrinks
-every shape (the CPU tests).  On the CPU the wrappers run their plain
-versions, so the gate holds plain against plain.
+    9,000 and `nn_min` 24,000 x 9,000;
+  * `farthest_point_sample` at the main paths' (n, k): 17,953 -> 1,024,
+    3,037 -> 1,024, 8,000 -> 2,048, 6,000 -> 4,096 and 6,000 -> 1,024 (the
+    first n points of the synthetic target).
+Tolerances: NN, FPS indices and `minplus_1d` bit for bit (and the winner's
+rescore equal to its d2); bounds rtol 2e-4 / atol 2e-5 with lb <= ub.  On
+the card each row also gives the kernel's mean ms (CUDA events) and, for
+the pruned bound kernels, the (point, proxy) pairs and (point, box) tests
+its counters report.  `--grid reduced` keeps one point of each family,
+`tiny` shrinks every shape (the CPU tests).  On the CPU the wrappers run
+their plain versions, so the gate holds plain against plain.
 
 Prints one JSON object; writes it to --out only.  Exits 0 when every row
 passes.
@@ -45,7 +48,7 @@ DEFAULT_OUT = os.path.join(_ROOT, "build", "kernel_check.json")
 # name -> (target points, source pool points, proxies, lane ns, trimmed
 # (ns, keep), grid (G, B, ns, P), NN anchors (queries, proxies), minplus
 # (lines, n), shard lanes (G, L, ns, P), shard grid (G, B, ns, P), shard NN
-# argmin (M, T), shard NN min (M, T)).
+# argmin (M, T), shard NN min (M, T), FPS (n, k) pairs).
 GRIDS = {
     "full": dict(
         nt=18000, pool=20000, proxies=(1024, 4096),
@@ -54,18 +57,21 @@ GRIDS = {
         grid=(16, 32, 3037, 1024), anchors=(8192, 4096),
         minplus=((4096, 348), (4096, 584), (4096, 828)),
         shard_lanes=(256, 1024, 512, 1024), shard_grid=(256, 32, 1500, 1024),
-        shard_argmin=(48000, 9000), shard_min=(24000, 9000)),
+        shard_argmin=(48000, 9000), shard_min=(24000, 9000),
+        fps=((17953, 1024), (3037, 1024), (8000, 2048), (6000, 4096),
+             (6000, 1024))),
     "reduced": dict(
         nt=18000, pool=20000, proxies=(1024,), ns=(512, 3037),
         trimmed=((3037, 2126),), grid=(16, 32, 3037, 1024),
         anchors=(8192, 4096), minplus=((4096, 828),),
         shard_lanes=(256, 1024, 512, 1024), shard_grid=(256, 32, 1500, 1024),
-        shard_argmin=(48000, 9000), shard_min=(24000, 9000)),
+        shard_argmin=(48000, 9000), shard_min=(24000, 9000),
+        fps=((17953, 1024), (3037, 1024))),
     "tiny": dict(
         nt=600, pool=400, proxies=(32,), ns=(48,), trimmed=((64, 45),),
         grid=(4, 4, 64, 32), anchors=(128, 32), minplus=((16, 20),),
         shard_lanes=(8, 16, 32, 32), shard_grid=(4, 4, 48, 32),
-        shard_argmin=(64, 90), shard_min=(48, 90)),
+        shard_argmin=(64, 90), shard_min=(48, 90), fps=((600, 32), (90, 16))),
 }
 LANES, GROUPS = 64, 6
 
@@ -74,7 +80,7 @@ def run_check(grid: str = "full", device: str = "cuda"):
     """Every row of the grid; returns (ok, lines, rows)."""
     import torch
     from ..ops import bounds as bounds_ops
-    from ..ops import coreset, cuda_bounds, cuda_minplus, cuda_nn
+    from ..ops import coreset, cuda_bounds, cuda_fps, cuda_minplus, cuda_nn
     from ..ops import geometry as geo
     from .workloads import bunny_synth
 
@@ -271,6 +277,14 @@ def run_check(grid: str = "full", device: str = "cuda"):
     grid_row("shard ", *spec["shard_grid"])
     nn_rows("shard ", *spec["shard_argmin"], which=("nn_argmin",))
     nn_rows("shard ", *spec["shard_min"], which=("nn_min",))
+
+    for n, k in spec["fps"]:
+        p = tgt[:n].contiguous()
+        got = cuda_fps.farthest_point_sample(p, k)
+        want = cuda_fps.farthest_point_sample_plain(p, k)
+        add("farthest_point_sample", f"{p.shape[0]}->{k}",
+            torch.equal(got, want), float(torch.max(torch.abs(got - want))),
+            ms=ms(lambda: cuda_fps.farthest_point_sample(p, k)))
     return all(r["ok"] for r in rows), lines, rows
 
 

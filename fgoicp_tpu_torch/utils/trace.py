@@ -28,7 +28,8 @@ Span names: "construct" (`GoICP.__init__`), "construct.fps" (every
 is named by its kind.
 
 **Counts** (`count(name, n)`, once a call, never once an iteration):
-"fps_steps" (the FPS loop's iterations), "icp_iterations" (an
+"fps_steps" (an FPS call's k - 1 steps), "fps_launches" (the FPS
+kernel's launches, `ops/cuda_fps`), "icp_iterations" (an
 `icp_batched` call's lockstep iterations), "icp_lanes" (its lanes),
 "inner_nodes" (the inner-BnB bound evaluations, the growth of
 `GoICPStats.translation_nodes`), and "host_reads".
