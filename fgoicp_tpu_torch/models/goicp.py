@@ -68,8 +68,10 @@ and device loops and on a mesh; "sort" is the default.
 
 Tracing (utils/trace.py): `register` and `GoICP.run` called on its own
 open a request record, which a model's construction ("construct" span),
-its inner-BnB calls ("inner_bnb", counting their bound evaluations as
-"inner_nodes") and its host reads join.
+its outer search ("bnb", counting "outer_steps", "rotation_children",
+"rotation_pruned" and "icp_triggered" as GoICPStats does), its inner-BnB
+calls ("inner_bnb", counting their bound evaluations as "inner_nodes")
+and its host reads join.
 """
 
 from __future__ import annotations
@@ -103,6 +105,12 @@ from ..utils import trace
 from . import icp as icp_model
 
 BIG = 1e10  # reference M_INF (common.hpp:18)
+# GoICPStats field -> the request count (utils/trace.py) of its growth.
+_TRACED_STATS = {"outer_steps": "outer_steps",
+                 "rotation_children": "rotation_children",
+                 "rotation_pruned": "rotation_pruned",
+                 "icp_triggered": "icp_triggered",
+                 "translation_nodes": "inner_nodes"}
 NO_CLOSED_LEAF = 1e29  # _closed_leaf_lb sentinel: no terminal leaf closed
 _LUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "float16": torch.float16}
@@ -661,6 +669,7 @@ class GoICP:
             trigger = trigger | (terminal & claim)
         idxs = np.flatnonzero(trigger)
         self.stats.icp_triggered += int(idxs.size)
+        trace.count("icp_triggered", int(idxs.size))
         w = self.engine.icp_width
         if self.engine.icp_refine_best and idxs.size < w and n > 0:
             in_trig = np.zeros(n, bool)
@@ -845,6 +854,7 @@ class GoICP:
         while self._heap and len(popped) < e.rotation_batch:
             popped.append(heapq.heappop(self._heap))
         children = self._spawn_children(popped)
+        pruned = 0
         for i in range(0, len(children), self.n_groups):
             chunk = children[i:i + self.n_groups]
             R, ub, best_t, lb = self._evaluate_children(chunk)
@@ -854,7 +864,7 @@ class GoICP:
             self._refine_candidates(R, chunk, ub, best_t, lb=lb)
             for k, (cx, cy, cz, cspan) in enumerate(chunk):
                 if lb[k] >= self.best_sse:  # fgoicp.cpp:92
-                    self.stats.rotation_pruned += 1
+                    pruned += 1
                     continue
                 heapq.heappush(
                     self._heap,
@@ -862,13 +872,18 @@ class GoICP:
                      (cx, cy, cz, cspan, float(ub[k]),
                       float(best_t[k][0]), float(best_t[k][1]),
                       float(best_t[k][2]))))
+        self.stats.rotation_pruned += pruned
         self.stats.outer_steps += 1
+        trace.count("rotation_children", len(children))
+        trace.count("rotation_pruned", pruned)
+        trace.count("outer_steps")
         self._maybe_checkpoint()
         if e.debug_checks:
             sanitize.check_heap(self._heap)
             sanitize.check_incumbent(self)
         return True
 
+    @trace.spanned("bnb")
     def _branch_and_bound_so3(self):
         """Outer loop (fgoicp.cpp:32-100), batched over rotation nodes."""
         if self.engine.outer_mode == "device":
@@ -883,7 +898,9 @@ class GoICP:
             self.best_sse - min(self.heap_min_lb(), self._closed_leaf_lb))
         return self.best_sse
 
-    # SO3State counter field -> GoICPStats field (device outer mode).
+    # SO3State counter field -> GoICPStats field (device outer mode); the
+    # request counts the growth of each under the GoICPStats name (but
+    # "inner_nodes" for translation_nodes, as the host loop does).
     _DEVICE_COUNTERS = {
         "outer_steps": "outer_steps",
         "nodes_expanded": "rotation_nodes",
@@ -902,8 +919,8 @@ class GoICP:
         for f, g in self._DEVICE_COUNTERS.items():
             cur = int(getattr(st, f))
             setattr(self.stats, g, getattr(self.stats, g) + cur - last[f])
-            if g == "translation_nodes":
-                trace.count("inner_nodes", cur - last[f])
+            if g in _TRACED_STATS:
+                trace.count(_TRACED_STATS[g], cur - last[f])
             last[f] = cur
 
     def _sanitize_device_state(self, st):

@@ -19,6 +19,9 @@ n_drop largest terms (`kept_sum`).
 
 Dispatch: CPU tensors go to the plain version; CUDA tensors launch the
 kernel or raise.  Each wrapper's `launches` counts its kernel launches.
+Inside a request (utils/trace.py) each launch adds its pairs and box
+tests to the request's device counts and its argument bytes to the
+request's "bound_bytes".
 The kernels compute the terms bit for bit as the plain versions do; only
 the order of the final sums over i differs, hence the rtol 2e-4 /
 atol 2e-5 they are compared at (the JAX package's tolerance between its
@@ -46,7 +49,7 @@ import torch
 
 from ..kernels import build
 from ..parallel.sharding import sharded
-from ..utils import debug
+from ..utils import debug, trace
 from .cuda_nn import BIG, check_f32
 
 # Elements of one [lanes, ns, P] distance block in the plain versions.
@@ -330,6 +333,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _request_counts(n_out: int, *tensors):
+    """The open request's counter for a launch on tensors[0]'s device
+    (None outside a request), after adding the launch's bytes to the
+    request's "bound_bytes": each distinct input tensor once, and the lb
+    and ub outputs of n_out nodes."""
+    inputs = {t.data_ptr(): t for t in tensors if t is not None}
+    trace.count("bound_bytes", 8 * n_out + sum(
+        t.numel() * t.element_size() for t in inputs.values()))
+    return trace.device_counts(tensors[0].device)
+
+
 def _launch_lanes(base, gids, t_lanes, gam_ub, gam_lb, gam_t_lanes, w,
                   slack: float, buckets: ProxyBuckets, point_order=None,
                   counts=None):
@@ -381,8 +395,11 @@ def fused_bounds_lanes(base, gids, t_lanes, proxies, gam_ub, gam_t_lanes,
                                         point_weights)
     if buckets is None:
         buckets = proxy_buckets(proxies)
+    counts = _request_counts(
+        gids.shape[0], base, gids, t_lanes, buckets.rows, buckets.boxes,
+        point_order, gam_ub, gam_lb, gam_t_lanes, point_weights)
     out = _launch_lanes(base, gids, t_lanes, gam_ub, gam_lb, gam_t_lanes,
-                        point_weights, slack, buckets, point_order)
+                        point_weights, slack, buckets, point_order, counts)
     fused_bounds_lanes.launches += 1
     return out
 
@@ -443,9 +460,12 @@ def fused_bounds_lanes_trimmed(base, gids, t_lanes, proxies, gam_ub,
             point_weights, n_drop)
     if buckets is None:
         buckets = proxy_buckets(proxies)
+    counts = _request_counts(
+        gids.shape[0], base, gids, t_lanes, buckets.rows, buckets.boxes,
+        point_order, gam_ub, gam_lb, gam_t_lanes, point_weights)
     out = _launch_lanes_trimmed(base, gids, t_lanes, gam_ub, gam_lb,
                                 gam_t_lanes, point_weights, slack, n_drop,
-                                buckets, point_order)
+                                buckets, point_order, counts)
     fused_bounds_lanes_trimmed.launches += 1
     return out
 
@@ -508,8 +528,11 @@ def fused_bounds(base, t_centers, proxies, gam_ub, gam_t, slack,
                                   gam_t, slack, point_weights)
     if buckets is None:
         buckets = proxy_buckets(proxies)
+    counts = _request_counts(
+        n_groups * n_trans, base, t_centers, buckets.rows, buckets.boxes,
+        point_order, gam_ub, gam_lb, gam_t, point_weights)
     out = _launch_grid(base, t_centers, gam_ub, gam_lb, gam_t, point_weights,
-                       slack, buckets, point_order)
+                       slack, buckets, point_order, counts)
     fused_bounds.launches += 1
     return out
 

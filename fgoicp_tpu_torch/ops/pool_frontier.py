@@ -329,6 +329,7 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
             active=s.active & ~(converged | empty), steps=s.steps + 1,
             evaluated=evaluated, dropped=dropped, dropped_lb=dropped_lb)
 
+    trace.count("pool_steps", s.steps)
     # A max_steps exit leaves still-active groups with unexplored frontier
     # nodes whose lb can sit below the group's returned result; fold the
     # surviving per-group frontier minimum into dropped_lb so the consumer's

@@ -82,6 +82,7 @@ from ..config import EngineConfig
 from ..models.goicp import GoICP
 from ..ops import so3_frontier as so3
 from ..utils import logging as log
+from ..utils import trace
 from .sharding import DEFAULT_TIMEOUT_S, Mesh, make_mesh
 
 _MSG_LEN = 18
@@ -598,6 +599,7 @@ class MultiHostGoICP(GoICP):
                   f"{self.stolen_nodes} stolen, best={self.best_sse}")
         return status == "stalled"
 
+    @trace.spanned("bnb")
     def _branch_and_bound_so3(self):
         if self.engine.outer_mode == "device":
             if not self._bnb_so3_device_multihost():

@@ -22,7 +22,8 @@ host, whose time is what they measure, and the only waits are the reads,
 which time themselves.  Outside a request a span costs one attribute read.
 Span names: "construct" (`GoICP.__init__`), "construct.fps" (every
 `ops/coreset.farthest_point_sample`), "icp" (`models/icp.icp_batched`),
-"icp.rescore" (`exact_sse_batched`), "inner_bnb"
+"icp.rescore" (`exact_sse_batched`), "bnb" (`GoICP._branch_and_bound_so3`,
+the outer SO(3) search in host and device modes), "inner_bnb"
 (`GoICP._evaluate_children`), "seed" and "fallback"
 (`RegistrationService._seed_call`, `._fallback`); the request's own span
 is named by its kind.
@@ -32,7 +33,21 @@ is named by its kind.
 kernel's launches, `ops/cuda_fps`), "icp_iterations" (an
 `icp_batched` call's lockstep iterations), "icp_lanes" (its lanes),
 "inner_nodes" (the inner-BnB bound evaluations, the growth of
-`GoICPStats.translation_nodes`), and "host_reads".
+`GoICPStats.translation_nodes`), "outer_steps", "rotation_children",
+"rotation_pruned" and "icp_triggered" (the growth of those `GoICPStats`
+fields), "pool_steps" (a pooled inner BnB's steps,
+`ops/pool_frontier.bnb_r3_pooled`), "bound_bytes" (the argument bytes of
+each bound-kernel launch, `ops/cuda_bounds`), and "host_reads".
+
+**Device counts** (`device_counts(device)`): the bound kernels add the
+(point, proxy) pairs they evaluate and the (point, box) tests they make to
+an int64 [2] tensor of the open request on the device, zeroed by a copy
+from pinned host memory (no kernel).  It comes back to the host on a read
+the request already makes: a `to_host` after a launch first queues an
+asynchronous copy of it into the pinned memory, which the read's own wait
+covers.  At the end of the request it is "bound_pairs" and
+"bound_box_tests"; only where no read followed the last launch does the
+end make one read of its own.
 
 **Host reads** (`to_host(*tensors)`): every synchronizing read of the hot
 path copies through it.  Each tensor is one read (its own copy to the
@@ -113,18 +128,40 @@ class Request:
         return 0.0 if span is None else span.total_s
 
 
+class _DeviceCounts:
+    """A request's int64 [2] counter on one device, its pinned host copy,
+    and whether a launch may have changed it since its last copy."""
+
+    __slots__ = ("dev", "host", "stale")
+
+    def __init__(self, device):
+        import torch
+        self.host = torch.zeros(2, dtype=torch.int64,
+                                pin_memory=device.type == "cuda")
+        self.dev = torch.empty(2, dtype=torch.int64, device=device)
+        self.dev.copy_(self.host, non_blocking=True)
+        self.stale = False
+
+    def stage(self):
+        """Queue the copy to the host; the next synchronizing read of the
+        device's stream completes it."""
+        self.host.copy_(self.dev, non_blocking=True)
+        self.stale = False
+
+
 class _Open:
     """The calling thread's open request: its record, the stack of open
     frames [Span, name, start ns, child ns, range], the launch counters at
-    its start and the mesh it watches."""
+    its start, the mesh it watches and its device counts by device."""
 
-    __slots__ = ("rec", "stack", "launches0", "mesh", "mesh0")
+    __slots__ = ("rec", "stack", "launches0", "mesh", "mesh0", "devcounts")
 
     def __init__(self, rec: Request):
         self.rec = rec
         self.stack = []
         self.launches0 = launch_counts()
         self.mesh = self.mesh0 = None
+        self.devcounts = {}
 
 
 def now() -> float:
@@ -214,6 +251,7 @@ def entry(kind: str):
             try:
                 return fn(*args, **kwargs)
             finally:
+                _read_device_counts(op)
                 _local.op = None
                 rec = op.rec
                 rec.seconds = _exit(op) * 1e-9
@@ -260,12 +298,43 @@ def watch_mesh(mesh) -> None:
         op.mesh, op.mesh0 = mesh, mesh.counters()
 
 
+def device_counts(device):
+    """The open request's int64 [2] counter on CUDA `device`, for a kernel
+    launch that adds to it (marked as changed); None outside a request."""
+    op = getattr(_local, "op", None)
+    if op is None:
+        return None
+    c = op.devcounts.get(device)
+    if c is None:
+        c = op.devcounts[device] = _DeviceCounts(device)
+    c.stale = True
+    return c.dev
+
+
+def _read_device_counts(op: _Open) -> None:
+    """The request's device counts into its counts "bound_pairs" and
+    "bound_box_tests" (a read of its own only for a counter that no read
+    has covered since its last launch)."""
+    for c in op.devcounts.values():
+        # A stale counter's read stages its copy and waits for it.
+        pairs, tests = (to_host(c.dev) if c.stale else c.host).tolist()
+        op.rec.counts["bound_pairs"] += pairs
+        op.rec.counts["bound_box_tests"] += tests
+
+
 def to_host(*tensors):
     """numpy copies of `tensors` (one array for one tensor, else a tuple):
     the hot path's synchronizing reads.  Inside a request each tensor
     counts one host read, and the blocking call's seconds add to
-    host_wait_s, of the request and of its innermost open span."""
+    host_wait_s, of the request and of its innermost open span.  A device
+    counter changed since its last copy rides along on the read of a tensor
+    on its device (module doc)."""
     op = getattr(_local, "op", None)
+    if op is not None and op.devcounts:
+        for t in tensors:
+            c = op.devcounts.get(t.device)
+            if c is not None and c.stale:
+                c.stage()
     rf = _range("read", op) if op is not None and _ranges else None
     t0 = time.perf_counter_ns()
     out = tuple(t.cpu().numpy() for t in tensors)
@@ -292,6 +361,10 @@ def summary(rec: Request) -> str:
             f"host_reads {rec.host_reads}, host_wait_s "
             f"{rec.host_wait_s:.4f}\n\tspans: {spans}\n\tcounts: {counts}"
             f"\n\tlaunches: {launches}")
+    if "outer_steps" in rec.counts:
+        text += (f"\n\tsearch: outer_steps {rec.counts['outer_steps']}, "
+                 f"pool_steps {rec.counts['pool_steps']}, inner_nodes "
+                 f"{rec.counts['inner_nodes']}")
     if rec.mesh:
         text += f"\n\tmesh: {rec.mesh}"
     return text

@@ -158,9 +158,10 @@ def test_service_fallback_joins_its_request(runs):
     assert srv.stats.fallbacks == 1
     assert set(rec.spans["seed"].under) == {"serve"}
     assert set(rec.spans["fallback"].under) == {"serve"}
-    # The fallback's GoICP: its construction and its run's ICPs.
+    # The fallback's GoICP: its construction and its run's ICPs (the
+    # search's refine ICPs inside its outer search).
     assert set(rec.spans["construct"].under) == {"fallback"}
-    assert set(rec.spans["icp"].under) == {"seed", "fallback"}
+    assert set(rec.spans["icp"].under) == {"seed", "fallback", "bnb"}
     assert rec.spans["fallback"].calls == 1
     assert srv.stats.fallback_seconds >= rec.spans["fallback"].total_s
     assert srv.stats.seed_seconds >= rec.spans["seed"].total_s
@@ -379,3 +380,96 @@ def test_range_names_round_trip():
     assert trace.parse_range("fgoicp.icp#12<seed") == ("icp", 12, "seed")
     assert trace.parse_range(trace.range_name("construct.fps", 3)) == (
         "construct.fps", 3, None)
+
+
+SEARCH_COUNTS = ("outer_steps", "rotation_children", "rotation_pruned",
+                 "icp_triggered")
+
+
+@pytest.mark.parametrize("kind", ["register", "serve"])
+def test_search_spans_and_counts_agree_with_stats(runs, kind):
+    """A search-only request (register's pair; the serving batch's
+    fallback): the outer search's span holds the inner BnB, and each search
+    count equals the growth of its GoICPStats field."""
+    out, rec, _, _ = runs[kind]
+    assert set(rec.spans["inner_bnb"].under) == {"bnb"}
+    assert rec.spans["bnb"].calls == 1
+    if kind == "register":
+        stats = out[0].stats
+        for name in SEARCH_COUNTS:
+            assert rec.counts[name] == getattr(stats, name), name
+        assert rec.counts["pool_steps"] == stats.inner_loop_steps > 0
+        assert rec.counts["outer_steps"] > 0
+        assert rec.counts["rotation_children"] > 0
+    assert set(rec.spans["bnb"].under) == ({"register"} if kind == "register"
+                                           else {"fallback"})
+    assert "search: outer_steps " in trace.summary(rec)
+    assert f"pool_steps {rec.counts['pool_steps']}" in trace.summary(rec)
+
+
+def test_seeding_certified_request_has_no_search(problem, monkeypatch):
+    """A pair the multi-start seeding certifies opens the outer search's
+    span, which makes no read and starts no inner BnB: no search count
+    grows, and its reads are the ICPs' and construction's, as before."""
+    reads = _Spy(monkeypatch, trace, "to_host",
+                 lambda *tensors: len(tensors))
+    cfg = Config()
+    cfg.engine = _engine(icp_multi_start=True)
+    pct, _, batch = problem
+    (model, _, _), (rec,) = _new_records(
+        lambda: register(cfg, pct, batch[1], device="cpu"))
+    assert model.last_certified_gap <= model.sse_threshold
+    assert model.stats.outer_steps == 0
+    assert "inner_bnb" not in rec.spans
+    assert rec.spans["bnb"].host_reads == 0
+    for name in SEARCH_COUNTS + ("pool_steps", "inner_nodes", "bound_pairs",
+                                 "bound_box_tests", "bound_bytes"):
+        assert rec.counts[name] == 0, name
+    assert rec.host_reads == sum(reads.calls) > 0
+    assert "search:" not in trace.summary(rec)
+
+
+def test_device_counts_ride_on_reads():
+    """The request's device counter (here on the CPU) comes back with the
+    next read after a launch, at no read of its own; only a launch that no
+    read followed makes the request's end read it."""
+    cpu = torch.device("cpu")
+    assert trace.device_counts(cpu) is None
+
+    def launch(pairs, tests):
+        trace.device_counts(cpu).add_(torch.tensor([pairs, tests]))
+
+    def work(read_last):
+        launch(5, 7)
+        trace.to_host(torch.ones(1))
+        launch(1, 2)
+        if read_last:
+            trace.to_host(torch.ones(2))
+
+    for read_last, reads in ((True, 2), (False, 2)):
+        _, (rec,) = _new_records(
+            lambda: trace.entry("register")(work)(read_last))
+        assert rec.counts["bound_pairs"] == 6
+        assert rec.counts["bound_box_tests"] == 9
+        assert rec.host_reads == reads
+    _, (rec,) = _new_records(lambda: trace.entry("register")(
+        lambda: trace.to_host(torch.ones(1)))())
+    assert rec.host_reads == 1 and "bound_pairs" not in rec.counts
+
+
+def test_traced_search_equals_untraced(problem):
+    """The same search inside a request and outside any (GoICP.run without
+    its entry): equal bits, equal stats."""
+    pct, pcs, _ = problem
+    models = [GoICP(pct, pcs, engine=_engine(), device="cpu")
+              for _ in range(2)]
+    _, (rec,) = _new_records(models[0].run)
+    _, recs = _new_records(lambda: GoICP.run.__wrapped__(models[1]))
+    assert recs == [] and rec.counts["outer_steps"] > 0
+    a, b = models
+    assert a.best_sse == b.best_sse
+    assert np.array_equal(a.best_rotation, b.best_rotation)
+    assert np.array_equal(a.best_translation, b.best_translation)
+    sa, sb = dataclasses.asdict(a.stats), dataclasses.asdict(b.stats)
+    sa.pop("wall_seconds"), sb.pop("wall_seconds")
+    assert sa == sb
