@@ -46,20 +46,31 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      paths' FPS shapes (17,953 -> 1,024, 3,037 -> 1,024, 8,000 -> 2,048,
      6,000 -> 4,096 and 6,000 -> 1,024), its ms a call, us a step and
      latency bound (k - 1 steps at its step at n = 1), and the kernel
-     launches of a warm bunny-size GoICP construction;
+     launches of a warm bunny-size GoICP construction; and the ICP
+     iteration's kernels (icp_align, icp_commit) against their plain
+     versions at the main paths' ICP shapes and thresholds (15 x 1,024 on
+     1,024, 1 x 3,037 on 17,953, 480 x 2,048 on 4,096, 32 x 8,000 on
+     6,000): from the plain loop's state at each iteration until its lanes
+     stop, R, t, last_R, last_t and the moved points within 2e-5, the SSE
+     within rtol 1e-4, last_sse and the lanes already done bit for bit,
+     done and running equal but within rounding of the threshold, and the
+     guard must fire; each one's ms a call and device time a launch
+     (profiler), and the host's ms an iteration (align, NN, commit, one
+     read) on the kernels and on the plain versions;
   3. run the default main path, `register(Config)` on cuda, on a seeded
      asymmetric 18,000 / 3,000-point pair with a known pose: it must
      certify (last_certified_gap <= sse_threshold), recover the pose
      (R max-abs error < 5e-3, t error < 5e-3 x span) and launch the FPS
-     kernel; cold, then warm;
+     and ICP kernels; cold, then warm;
   4. the same with icp_multi_start = false, the search-only form of the
      path, which must also bound translation nodes and launch the NN,
-     lane and FPS kernels;
+     lane, FPS and ICP kernels;
   5. trimmed registration (trim = true, trim_fraction = 0.3) on a seeded
      partial-overlap pair (20,000 target / 10,000 source points, 22.5 % of
      the source outside the target's part of the curve), default and
      search-only; both must certify, recover the pose and launch the FPS
-     kernel, and the search-only run must launch the trimmed lane kernel;
+     kernel (the default also the ICP kernels), and the search-only run
+     must launch the trimmed lane kernel;
   6. the grouped inner scheduler (frontier_mode = "grouped", search-only) on
      the 18,000 / 3,000 pair; it must certify, recover the pose and launch
      the grid kernel;
@@ -295,6 +306,16 @@ def random_rotation(rng):
     if np.linalg.det(R) < 0:
         R[:, 0] *= -1
     return R
+
+
+def turn(rng, angle):
+    """A rotation by `angle` about a uniform random axis (Rodrigues)."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return (np.eye(3) + np.sin(angle) * k
+            + (1 - np.cos(angle)) * k @ k).astype(np.float32)
 
 
 def serving_data():
@@ -3065,6 +3086,123 @@ def tools_phase(torch, counted, launches, reset, trimmed_nodes, smi_line):
         f"versions: {held}")
 
 
+ICP_ITERATIONS = 20
+
+
+def device_us(torch, call, kernels, reps=20):
+    """Mean device microseconds a launch of each named kernel over `reps`
+    warm calls of call(), from torch.profiler's device events (a kernel
+    shorter than its wrapper's host time reads as the host's time by CUDA
+    events around calls queued back to back)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for name in kernels:
+        events = [e for e in prof.key_averages() if name in e.key
+                  and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        n = sum(e.count for e in events)
+        out[name] = (sum(e.self_device_time_total for e in events) / n
+                     if n else None)
+    return out
+
+
+def compare_icp(torch):
+    """Phase 2, the ICP iteration's kernels at kernel_check.ICP_SHAPES (a
+    seeded surface cloud, starts up to 0.5 rad from the identity, the
+    callers' convergence thresholds): kernel_check.compare_icp_steps, every
+    output of icp_align and icp_commit against their plain versions from
+    the same state at every iteration until the lanes stop, the guard
+    firing; each kernel's and plain version's ms a call by CUDA events
+    (icp_commit with threshold -1, so no lane finishes while it is timed),
+    the host clock's ms an iteration (align, NN, commit, the read of
+    `running`) over ICP_ITERATIONS iterations, kernels against plain
+    versions, and each kernel's device time a launch (`device_us`).
+    Returns the JSON rows of both kernels."""
+    from fgoicp_tpu_torch.ops import cuda_icp
+    from fgoicp_tpu_torch.scripts import kernel_check as kc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    cloud = surface_cloud(rng, 24000)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    align_cases, commit_cases = [], []
+    for g, ns, nt, thr in kc.ICP_SHAPES:
+        pct = T(cloud[rng.choice(len(cloud), nt, replace=False)])
+        src = T(cloud[rng.choice(len(cloud), ns, replace=False)])
+        R0 = T(np.stack([turn(rng, 0.5 * i / g) for i in range(g)]))
+        t0 = T(rng.uniform(-0.05, 0.05, size=(g, 3)).astype(np.float32))
+        shape = f"{g}x{ns} on {nt}"
+        out = kc.compare_icp_steps(pct, src, R0, t0, thr)
+        if not out["ok"]:
+            raise AssertionError(
+                f"icp kernels [{shape}, threshold {thr}] against the plain "
+                f"step: {out} (limits: R / t / last_R / last_t / points "
+                f"{kc.ICP_ATOL}, SSE rtol {kc.ICP_SSE_RTOL}, done within "
+                f"{kc.ICP_GUARD_BAND} of the threshold, guard fired)")
+
+        def align(fn, s):
+            return lambda: fn(pct, s["idx"], None, s["done"], s["cur"],
+                              s["R"], s["t"], s["last_R"], s["last_t"],
+                              s["running"])
+
+        def commit(fn, s):
+            return lambda: fn(s["d2"], None, -1.0, s["done"], s["sse"],
+                              s["last_sse"], s["running"])
+
+        s = kc.icp_state(pct, src, R0, t0)
+        a_ms = cuda_ms(torch, align(cuda_icp.icp_align, s), 20)
+        a_plain = cuda_ms(torch, align(cuda_icp.icp_align_plain, s), 3)
+        c_ms = cuda_ms(torch, commit(cuda_icp.icp_commit, s), 20)
+        c_plain = cuda_ms(torch, commit(cuda_icp.icp_commit_plain, s), 3)
+
+        def iteration_ms(kernels):
+            s = kc.icp_state(pct, src, R0, t0)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            for _ in range(ICP_ITERATIONS):
+                kc.icp_step(s, pct, -1.0, kernels=kernels)
+                int(s["running"].cpu()[0])
+            return (time.perf_counter() - t_run) * 1e3 / ICP_ITERATIONS
+
+        dev_us = device_us(torch, lambda: (align(cuda_icp.icp_align, s)(),
+                                           commit(cuda_icp.icp_commit, s)()),
+                           ("align_kernel", "commit_kernel"))
+        it_k, it_p = iteration_ms(True), iteration_ms(False)
+        (a_flops, a_bytes), (c_flops, c_bytes) = cuda_icp.traffic(g, ns)
+        case = report("icp_align", shape, max(out["pose_err"],
+                                               out["last_err"]),
+                      a_ms, a_plain, a_flops, a_bytes)
+        case.update(threads=cuda_icp.block_threads(ns), iteration_ms=it_k,
+                    plain_iteration_ms=it_p, steps=out["steps"],
+                    guard_fired=out["guard_fired"],
+                    device_us=dev_us["align_kernel"])
+        align_cases.append(case)
+        case = report("icp_commit", shape, out["sse_rel_err"], c_ms, c_plain,
+                      c_flops, c_bytes)
+        case.update(device_us=dev_us["commit_kernel"])
+        commit_cases.append(case)
+        say(f"icp iteration [{shape}]: {out['steps']} steps against the "
+            f"plain step, {out['guard_fired']} lanes stopped by the guard, "
+            f"R / t / points within {max(out['pose_err'], out['last_err'])!r},"
+            f" SSE within rtol {out['sse_rel_err']!r}; {it_k!r} ms on the "
+            f"kernels, {it_p!r} ms on the plain versions (host clock, align "
+            f"+ NN + commit + one read, {ICP_ITERATIONS} iterations); device "
+            f"time a launch (profiler): icp_align {dev_us['align_kernel']!r}"
+            f" us, icp_commit {dev_us['commit_kernel']!r} us")
+    return [row("icp_align", "fgoicp_tpu_torch/csrc/icp_step.cu",
+                "none (fgoicp_tpu/models/icp.py: XLA ops)",
+                dict(cases=align_cases)),
+            row("icp_commit", "fgoicp_tpu_torch/csrc/icp_step.cu",
+                "none (fgoicp_tpu/models/icp.py: XLA ops)",
+                dict(cases=commit_cases))]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3074,8 +3212,8 @@ def main() -> int:
 
     from fgoicp_tpu_torch import register
     from fgoicp_tpu_torch.kernels import build
-    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_fps, cuda_minplus
-    from fgoicp_tpu_torch.ops import cuda_nn
+    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_fps, cuda_icp
+    from fgoicp_tpu_torch.ops import cuda_minplus, cuda_nn
     from fgoicp_tpu_torch.ops import geometry as geo
     from fgoicp_tpu_torch.utils import trace
 
@@ -3117,6 +3255,7 @@ def main() -> int:
                               trim_norm.pcs.contiguous(), serving)
     kernels.append(compare_minplus(torch, norm))
     kernels.append(compare_fps(torch))
+    kernels.extend(compare_icp(torch))
     del norm, trim_norm
     torch.cuda.empty_cache()
 
@@ -3125,7 +3264,8 @@ def main() -> int:
                cuda_bounds.fused_bounds_lanes,
                cuda_bounds.fused_bounds_lanes_trimmed,
                cuda_bounds.fused_bounds, cuda_minplus.minplus_1d,
-               cuda_fps.farthest_point_sample)
+               cuda_fps.farthest_point_sample, cuda_icp.icp_align,
+               cuda_icp.icp_commit)
     launches = {fn.__name__: 0 for fn in counted}
     nn_fns = (cuda_nn.nn_argmin, cuda_nn.nn_min)
 
@@ -3182,17 +3322,18 @@ def main() -> int:
 
     default = drive("default", cfg, pct_in, pcs_in, pair,
                     icp_multi_start=True)
-    require("default", default, ["farthest_point_sample"], nodes=False)
+    require("default", default,
+            ["farthest_point_sample", "icp_align", "icp_commit"], nodes=False)
     search = drive("search-only", cfg, pct_in, pcs_in, pair,
                    icp_multi_start=False)
     require("search-only", search,
             ["nn_argmin", "nn_min", "fused_bounds_lanes",
-             "farthest_point_sample"])
+             "farthest_point_sample", "icp_align", "icp_commit"])
 
     tdefault = drive("trimmed default", tcfg, tpct_in, tpcs_in, trim_pair,
                      icp_multi_start=True)
-    require("trimmed default", tdefault, ["farthest_point_sample"],
-            nodes=False)
+    require("trimmed default", tdefault,
+            ["farthest_point_sample", "icp_align", "icp_commit"], nodes=False)
     tsearch = drive("trimmed search-only", tcfg, tpct_in, tpcs_in, trim_pair,
                     icp_multi_start=False)
     require("trimmed search-only", tsearch,

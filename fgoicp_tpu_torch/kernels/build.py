@@ -65,6 +65,12 @@ _SIGNATURES = {
     "fgoicp_minplus_1d": (_P, _F, _I, _I, _P, _P, _P),
     # (points, n, k, start, layout, smem_limit, scratch, idx_out, stream)
     "fgoicp_fps": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # (target, idx, w, done, G, ns, threads, cur, R, t, last_R, last_t,
+    #  running, stream)
+    "fgoicp_icp_align": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _P),
+    # (d2, w, G, ns, threads, threshold, done, sse, last_sse, running, stream)
+    "fgoicp_icp_commit": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
 }
 
 

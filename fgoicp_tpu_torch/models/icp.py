@@ -7,10 +7,19 @@ exact SSE) while the relative SSE improvement exceeds the convergence
 threshold, up to max_iter, and return the better of the last two iterates.
 
 G problems run in lockstep with per-lane `done` masks.  The JAX package's
-`lax.while_loop` is a Python loop here whose condition is read on the host
-once per iteration (`trace.to_host`).  Inside a request (utils/trace.py) an
-`icp_batched` call is an "icp" span that counts its lockstep iterations
-and lanes, and `exact_sse_batched` an "icp.rescore" span.
+`lax.while_loop` is a Python loop here whose condition, the count of lanes
+still running, is read on the host once per iteration (`trace.to_host`).
+An iteration is `ops/cuda_icp.icp_align` (correspondences, Procrustes, the
+pose update, the points moved in place), the NN query, and
+`ops/cuda_icp.icp_commit` (the SSE, the loop guard, the running count):
+on the card two hand-written kernels around the NN kernel, three launches;
+on the CPU their plain versions, the plain torch ops of `ops/procrustes.py`
+and masked selects.  A trimmed ICP feeds its keep mask to icp_align as the
+weights and its kept sum to icp_commit.  Inside a request (utils/trace.py)
+an `icp_batched` call is an "icp" span that counts its lockstep iterations
+("icp_iterations") and lanes, and `exact_sse_batched` an "icp.rescore"
+span; the record's `icp_commit` launches are the iterations the kernels
+ran.
 
 Target sharding (parallel/bnb.py::icp_sharded): with `target_axis`, a mesh
 axis of parallel/sharding.py, pct is still the FULL target, which every
@@ -27,8 +36,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import cuda_icp
 from ..ops import nn as nn_ops
-from ..ops import procrustes as proc_ops
 from ..parallel.sharding import sharded
 from ..utils import debug
 from ..utils import trace
@@ -38,14 +47,9 @@ NO_VOTE = 2 ** 31 - 1   # a shard's index vote when it does not hold the min
 FAR = 1e6   # padded target rows: far from every query, they never win
 
 
-def _masked(pred: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
-    """Select new where pred (per lane), broadcasting over trailing dims."""
-    shape = pred.shape + (1,) * (new.ndim - pred.ndim)
-    return torch.where(pred.reshape(shape), new, old)
-
-
 def _lane_weights(point_weights, trim_keep, g: int, ns: int, device):
-    """point_weights ([ns] or [G, ns]) broadcast to [G, ns] float32, or None.
+    """point_weights ([ns] or [G, ns]) as a contiguous [G, ns] float32, or
+    None.
     0 marks padding rows (the ragged serving batch); soft values weight
     Procrustes and the SSE."""
     if point_weights is None:
@@ -55,7 +59,7 @@ def _lane_weights(point_weights, trim_keep, g: int, ns: int, device):
         # the ragged serving path forbids trimming instead.
         raise ValueError("point_weights cannot combine with trim_keep")
     w = torch.as_tensor(point_weights, dtype=torch.float32, device=device)
-    return w.expand(g, ns)
+    return w.expand(g, ns).contiguous()
 
 
 def _transform(R: torch.Tensor, pcs: torch.Tensor, t: torch.Tensor):
@@ -147,49 +151,41 @@ def icp_batched(pct: torch.Tensor, pcs: torch.Tensor, R0: torch.Tensor,
         return d2.reshape(g, ns), idx.reshape(g, ns)
 
     # Per-lane sources change only the first transform: the loop carries
-    # the transformed points either way.
-    cur = _transform(R0, pcs, t0)
+    # the transformed points either way, updated in place.
+    cur = _transform(R0, pcs, t0).contiguous()
     d2, idx = nn_query(cur)
     sse = torch.full((g,), BIG, dtype=torch.float32, device=pcs.device)
     last_sse = torch.full((g,), 2 * BIG, dtype=torch.float32, device=pcs.device)
-    R, t, last_R, last_t = R0, t0, R0, t0
+    R = R0.clone(memory_format=torch.contiguous_format)
+    t = t0.clone(memory_format=torch.contiguous_format)
+    last_R, last_t = R.clone(), t.clone()
     done = ~active
+    running = torch.sum(active, dtype=torch.int32).reshape(1)
+    target = pct.contiguous()
     it = 0
-    while it < max_iter and not bool(trace.to_host(torch.all(done))):
-        run = ~done
+    while it < max_iter and int(trace.to_host(running)[0]) > 0:
         # Correspondences on the current (pre-update) points (icp3d.cu:146),
         # carried from the previous iteration's single NN pass: the SSE
         # query of iteration k is the correspondence query of k+1.
-        corr = pct[idx.long()]
-        R_, t_ = proc_ops.procrustes(cur, corr,
-                                     mask=trim_mask(d2, trim_keep, w))
-        new_cur = torch.einsum("grc,gnc->gnr", R_, cur) + t_[:, None, :]
-        new_R = torch.einsum("gab,gbc->gac", R_, R)
-        new_t = torch.einsum("gab,gb->ga", R_, t) + t_
-        d2n, idxn = nn_query(new_cur)
-        new_sse = trimmed_sum(d2n, trim_keep, w)
-
-        last_sse = _masked(run, sse, last_sse)
-        sse = _masked(run, new_sse, sse)
-        last_R = _masked(run, R, last_R)
-        last_t = _masked(run, t, last_t)
-        R = _masked(run, new_R, R)
-        t = _masked(run, new_t, t)
-        cur = _masked(run, new_cur, cur)
-        d2 = _masked(run, d2n, d2)
-        idx = _masked(run, idxn, idx)
-        # Reference loop guard: continue while
-        # (last_sse - sse) > threshold * last_sse (icp3d.cu:94).
-        conv = (last_sse - sse) <= convergence_threshold * last_sse
-        done = done | (run & conv)
+        cuda_icp.icp_align(target, idx, trim_mask(d2, trim_keep, w), done,
+                           cur, R, t, last_R, last_t, running)
+        d2, idx = nn_query(cur)
+        if _trimmed(trim_keep, ns):
+            cuda_icp.icp_commit(trimmed_sum(d2, trim_keep)[:, None], None,
+                                convergence_threshold, done, sse, last_sse,
+                                running)
+        else:
+            cuda_icp.icp_commit(d2, w, convergence_threshold, done, sse,
+                                last_sse, running)
         it += 1
     trace.count("icp_iterations", it)
     trace.count("icp_lanes", g)
 
     # Return the better of the last two iterates (icp3d.cu:106-107).
     better = sse < last_sse
-    return (torch.where(better, sse, last_sse), _masked(better, R, last_R),
-            _masked(better, t, last_t))
+    return (torch.where(better, sse, last_sse),
+            cuda_icp.masked(better, R, last_R),
+            cuda_icp.masked(better, t, last_t))
 
 
 @trace.spanned("icp.rescore")

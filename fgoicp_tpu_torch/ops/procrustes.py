@@ -11,6 +11,13 @@ IterativeClosestPoint3D::procrustes (icp3d.cu:110-172).
 
 `torch.linalg.inv_ex` is used instead of `torch.linalg.inv` so that no
 error check waits for the device.
+
+Dispatch: the ICP loop (models/icp.py) runs this module on the CPU, through
+`ops/cuda_icp.icp_align_plain`; on the card the kernel
+`csrc/icp_step.cu::align_kernel` runs the same recurrence on each lane in
+registers (the 3x3 inverse as cofactors over the determinant, the
+reflection fix's eigenvector by Jacobi rotations), and this module is not
+called there.
 """
 
 from __future__ import annotations

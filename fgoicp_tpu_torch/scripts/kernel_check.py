@@ -18,9 +18,20 @@ The grid is the JAX package's KERNELCHECK grid, extended:
     9,000 and `nn_min` 24,000 x 9,000;
   * `farthest_point_sample` at the main paths' (n, k): 17,953 -> 1,024,
     3,037 -> 1,024, 8,000 -> 2,048, 6,000 -> 4,096 and 6,000 -> 1,024 (the
-    first n points of the synthetic target).
+    first n points of the synthetic target);
+  * `icp_align` + `nn_argmin` + `icp_commit` at the main paths' (lanes,
+    points, target points) with their callers' convergence thresholds
+    (ICP_SHAPES): 15 x 1,024 on 1,024, 1 x 3,037 on 17,953, 480 x 2,048 on
+    4,096 and 32 x 8,000 on 6,000 (source lanes turned up to 0.5 rad; the
+    first points of the synthetic pool and target); every iteration of
+    the plain loop until its lanes stop, each step also taken on the
+    kernels from the same state (`compare_icp_steps`).
 Tolerances: NN, FPS indices and `minplus_1d` bit for bit (and the winner's
-rescore equal to its d2); bounds rtol 2e-4 / atol 2e-5 with lb <= ub.  On
+rescore equal to its d2); bounds rtol 2e-4 / atol 2e-5 with lb <= ub; the
+ICP step's R, t, last_R, last_t and moved points within 2e-5, its SSE
+within rtol 1e-4 (the kernels sum in another order than torch), last_sse
+and the lanes already done bit for bit, `done` and `running` equal but
+where rounding may decide the loop guard, and the guard must fire.  On
 the card each row also gives the kernel's mean ms (CUDA events) and, for
 the pruned bound kernels, the (point, proxy) pairs and (point, box) tests
 its counters report.  `--grid reduced` keeps one point of each family,
@@ -41,6 +52,22 @@ import time
 
 import numpy as np
 
+# The ICP kernels' main-path shapes, (lanes, points a lane, target points,
+# the caller's convergence threshold, config.py's EngineConfig): the bunny
+# seeding lanes on the 1,024-point coreset (icp_convergence_init), the
+# width-1 bunny polish (icp_convergence_final), the serving seeding, 480
+# lanes of 2,048 on the 4,096-point coreset (icp_convergence_bnb), and the
+# serving polish, 32 views of 8,000 on the 6,000-point target
+# (icp_convergence_final).
+ICP_SHAPES = ((15, 1024, 1024, 0.05), (1, 3037, 17953, 5e-4),
+              (480, 2048, 4096, 5e-3), (32, 8000, 6000, 5e-4))
+# The ICP kernels against their plain versions (tests/test_torch_icp_kernel.py
+# gives the reasons): poses and moved points within ICP_ATOL, the SSE within
+# rtol ICP_SSE_RTOL, and `done` equal except where the plain step's
+# relative improvement lies within ICP_GUARD_BAND of the threshold.
+ICP_ATOL, ICP_SSE_RTOL, ICP_GUARD_BAND = 2e-5, 1e-4, 1e-5
+ICP_MAX_STEPS = 100
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 DEFAULT_OUT = os.path.join(_ROOT, "build", "kernel_check.json")
@@ -48,7 +75,8 @@ DEFAULT_OUT = os.path.join(_ROOT, "build", "kernel_check.json")
 # name -> (target points, source pool points, proxies, lane ns, trimmed
 # (ns, keep), grid (G, B, ns, P), NN anchors (queries, proxies), minplus
 # (lines, n), shard lanes (G, L, ns, P), shard grid (G, B, ns, P), shard NN
-# argmin (M, T), shard NN min (M, T), FPS (n, k) pairs).
+# argmin (M, T), shard NN min (M, T), FPS (n, k) pairs, ICP (lanes, ns, nt,
+# convergence threshold)).
 GRIDS = {
     "full": dict(
         nt=18000, pool=20000, proxies=(1024, 4096),
@@ -59,21 +87,123 @@ GRIDS = {
         shard_lanes=(256, 1024, 512, 1024), shard_grid=(256, 32, 1500, 1024),
         shard_argmin=(48000, 9000), shard_min=(24000, 9000),
         fps=((17953, 1024), (3037, 1024), (8000, 2048), (6000, 4096),
-             (6000, 1024))),
+             (6000, 1024)),
+        icp=ICP_SHAPES),
     "reduced": dict(
         nt=18000, pool=20000, proxies=(1024,), ns=(512, 3037),
         trimmed=((3037, 2126),), grid=(16, 32, 3037, 1024),
         anchors=(8192, 4096), minplus=((4096, 828),),
         shard_lanes=(256, 1024, 512, 1024), shard_grid=(256, 32, 1500, 1024),
         shard_argmin=(48000, 9000), shard_min=(24000, 9000),
-        fps=((17953, 1024), (3037, 1024))),
+        fps=((17953, 1024), (3037, 1024)),
+        icp=(ICP_SHAPES[0], ICP_SHAPES[2])),
     "tiny": dict(
         nt=600, pool=400, proxies=(32,), ns=(48,), trimmed=((64, 45),),
         grid=(4, 4, 64, 32), anchors=(128, 32), minplus=((16, 20),),
         shard_lanes=(8, 16, 32, 32), shard_grid=(4, 4, 48, 32),
-        shard_argmin=(64, 90), shard_min=(48, 90), fps=((600, 32), (90, 16))),
+        shard_argmin=(64, 90), shard_min=(48, 90), fps=((600, 32), (90, 16)),
+        icp=((3, 48, 90, 0.05),)),
 }
 LANES, GROUPS = 64, 6
+
+
+def icp_state(pct, pcs, R0, t0, active=None):
+    """`models/icp.py::icp_batched`'s loop state before its first
+    iteration: the points moved by (R0, t0), their NN query, R / t and
+    last_R / last_t at the start, sse BIG and last_sse 2 BIG, `done` the
+    inactive lanes, `running` the active count."""
+    import torch
+    from ..models import icp as ticp
+    from ..ops import cuda_nn
+    g, ns, dev = R0.shape[0], pcs.shape[-2], pct.device
+    if active is None:
+        active = torch.ones(g, dtype=torch.bool, device=dev)
+    cur = ticp._transform(R0, pcs, t0).contiguous()
+    d2, idx = cuda_nn.nn_argmin(cur.reshape(-1, 3), pct)
+    return dict(cur=cur, d2=d2.reshape(g, ns), idx=idx.reshape(g, ns),
+                R=R0.clone(), t=t0.clone(), last_R=R0.clone(),
+                last_t=t0.clone(),
+                sse=torch.full((g,), ticp.BIG, device=dev),
+                last_sse=torch.full((g,), 2 * ticp.BIG, device=dev),
+                done=~active,
+                running=torch.sum(active, dtype=torch.int32).reshape(1))
+
+
+def icp_step(s, pct, threshold, weights=None, trim=None, kernels=True):
+    """One iteration of icp_batched's loop on state s, in place: icp_align,
+    the NN query, icp_commit (`ops/cuda_icp.py`; kernels=False: their
+    plain versions, on any device)."""
+    from ..models import icp as ticp
+    from ..ops import cuda_icp, cuda_nn
+    align = cuda_icp.icp_align if kernels else cuda_icp.icp_align_plain
+    commit = cuda_icp.icp_commit if kernels else cuda_icp.icp_commit_plain
+    g, ns = s["idx"].shape
+    align(pct, s["idx"], ticp.trim_mask(s["d2"], trim, weights), s["done"],
+          s["cur"], s["R"], s["t"], s["last_R"], s["last_t"], s["running"])
+    d2, idx = cuda_nn.nn_argmin(s["cur"].reshape(-1, 3), pct)
+    s["d2"], s["idx"] = d2.reshape(g, ns), idx.reshape(g, ns)
+    if ticp._trimmed(trim, ns):
+        commit(ticp.trimmed_sum(s["d2"], trim)[:, None], None, threshold,
+               s["done"], s["sse"], s["last_sse"], s["running"])
+    else:
+        commit(s["d2"], weights, threshold, s["done"], s["sse"],
+               s["last_sse"], s["running"])
+
+
+def compare_icp_steps(pct, pcs, R0, t0, threshold, active=None,
+                      weights=None, trim=None, max_steps=ICP_MAX_STEPS):
+    """icp_batched's loop on the plain versions from icp_state, up to
+    max_steps or until no lane runs; before each plain step a copy of the
+    state takes the step on the kernels, and every output of both is
+    compared.  Returns the worst readings over the steps: `pose_err` (max
+    abs of R, t and the moved points), `last_err` (last_R, last_t),
+    `sse_rel_err`; `last_sse_equal`, `done_ok` (equal but within
+    ICP_GUARD_BAND of the threshold), `running_ok` (each side's running =
+    its lanes not done), `done_lanes_kept` (lanes done before a step left
+    bit for bit); `steps`, `guard_fired` (lanes the plain guard finished)
+    and `ok`: every reading within its limit and the guard fired."""
+    import torch
+    s = icp_state(pct, pcs, R0, t0, active)
+    out = dict(pose_err=0.0, last_err=0.0, sse_rel_err=0.0,
+               last_sse_equal=True, done_ok=True, running_ok=True,
+               done_lanes_kept=True, steps=0, guard_fired=0)
+
+    def worst(key, value):
+        value = float(value)
+        out[key] = max(out[key], value) if value == value else float("inf")
+
+    while out["steps"] < max_steps and int(s["running"][0]) > 0:
+        was = s["done"].clone()
+        k = {key: v.clone() for key, v in s.items()}
+        icp_step(k, pct, threshold, weights, trim)
+        before = {key: v.clone() for key, v in s.items()}
+        icp_step(s, pct, threshold, weights, trim, kernels=False)
+        worst("pose_err", max(float(torch.max(torch.abs(k[x] - s[x])))
+                              for x in ("R", "t", "cur")))
+        worst("last_err", max(float(torch.max(torch.abs(k[x] - s[x])))
+                              for x in ("last_R", "last_t")))
+        worst("sse_rel_err", torch.max(torch.abs(k["sse"] - s["sse"])
+                                       / s["sse"]))
+        out["last_sse_equal"] &= torch.equal(k["last_sse"], s["last_sse"])
+        rel = (s["last_sse"] - s["sse"]) / s["last_sse"]
+        differ = k["done"] != s["done"]
+        out["done_ok"] &= bool(torch.all(
+            torch.abs(rel[differ] - threshold) <= ICP_GUARD_BAND))
+        out["running_ok"] &= all(
+            int(side["running"][0]) == int((~side["done"]).sum())
+            for side in (k, s))
+        out["done_lanes_kept"] &= all(
+            torch.equal(k[x][was], before[x][was])
+            for x in ("cur", "R", "t", "last_R", "last_t", "sse",
+                      "last_sse"))
+        out["guard_fired"] += int((s["done"] & ~was).sum())
+        out["steps"] += 1
+    out["ok"] = (out["pose_err"] <= ICP_ATOL and out["last_err"] <= ICP_ATOL
+                 and out["sse_rel_err"] <= ICP_SSE_RTOL
+                 and out["last_sse_equal"] and out["done_ok"]
+                 and out["running_ok"] and out["done_lanes_kept"]
+                 and out["guard_fired"] > 0)
+    return out
 
 
 def run_check(grid: str = "full", device: str = "cuda"):
@@ -285,6 +415,20 @@ def run_check(grid: str = "full", device: str = "cuda"):
         add("farthest_point_sample", f"{p.shape[0]}->{k}",
             torch.equal(got, want), float(torch.max(torch.abs(got - want))),
             ms=ms(lambda: cuda_fps.farthest_point_sample(p, k)))
+    for g, ns, nt, thr in spec["icp"]:
+        target = tgt[:nt].contiguous()
+        axes = rng.normal(size=(g, 3))
+        axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+        turn = 0.5 * np.arange(g) / g              # radians, per lane
+        R0 = geo.quat_cube_to_matrix(f32(axes * np.sin(turn / 2)[:, None]))
+        t0 = f32(rng.uniform(-0.05, 0.05, size=(g, 3)))
+        src = pool[:ns].contiguous()
+        out = compare_icp_steps(target, src, R0, t0, thr)
+        s = icp_state(target, src, R0, t0)
+        add("icp_align+icp_commit", f"{g}x{ns} on {nt}", out["ok"],
+            out["pose_err"], **{k: v for k, v in out.items()
+                                if k not in ("ok", "pose_err")},
+            ms=ms(lambda: icp_step(s, target, -1.0)))
     return all(r["ok"] for r in rows), lines, rows
 
 

@@ -4,7 +4,8 @@ Wraps the engine's phases with timers and prints where the seconds go:
 the initial ICP, the inner-BnB calls, the triggered refine ICPs, the child
 spawning (with its claim-leaf ICPs) and the final ICP, the rest as host
 bookkeeping; plus the ms per ICP iteration (the ICP phases' seconds over
-their Procrustes steps) and per inner BnB step.  On a card every phase
+their Procrustes steps, one an ICP iteration, from the ICP's
+"icp_iterations" count) and per inner BnB step.  On a card every phase
 edge synchronizes the device first: launches are asynchronous, and without
 it a phase's device time is billed to whichever phase next reads the host.
 
@@ -38,34 +39,36 @@ _ICP_PHASES = ("initial_icp", "refine_icp", "spawn", "final_icp")
 
 def timed(model, sync):
     """Timers around the engine's phases (instance attributes shadowing
-    its methods) and a count of the Procrustes steps each phase runs.
-    Returns (seconds by phase, calls by phase, Procrustes steps by phase);
-    the counts fill as the model runs."""
-    from ..ops import procrustes as proc_ops
+    its methods) and, by phase, the Procrustes steps the phase runs: its
+    `icp_batched` calls' "icp_iterations" counts (one step an iteration),
+    read from `trace.count` while the phase runs.  Returns (seconds by
+    phase, calls by phase, Procrustes steps by phase); the counts fill as
+    the model runs."""
+    from ..utils import trace
     acc = {k: 0.0 for k in PHASES}
     calls = {k: 0 for k in PHASES}
     steps = {k: 0 for k in PHASES}
     current = []
-    real_procrustes = proc_ops.procrustes
+    real_count = trace.count
 
-    def counted_procrustes(*a, **kw):
-        if current:
-            steps[current[-1]] += 1
-        return real_procrustes(*a, **kw)
+    def counted(name, n=1):
+        if current and name == "icp_iterations":
+            steps[current[-1]] += n
+        return real_count(name, n)
 
     def wrap(name, fn):
         def inner(*a, **kw):
             sync()
             t0 = time.perf_counter()
             current.append(name)
-            proc_ops.procrustes = counted_procrustes
+            trace.count = counted
             try:
                 out = fn(*a, **kw)
                 sync()
             finally:
                 current.pop()
                 if not current:
-                    proc_ops.procrustes = real_procrustes
+                    trace.count = real_count
             acc[name] += time.perf_counter() - t0
             calls[name] += 1
             return out

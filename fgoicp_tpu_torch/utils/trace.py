@@ -10,8 +10,8 @@ request.  A record holds its id and kind, its host seconds, per span name
 the host seconds (total, and self: the total less its child spans), the
 counts below, the host reads and their waits, and the deltas over the
 request of the counters the program already keeps: every kernel wrapper's
-`launches` (`ops/cuda_nn`, `ops/cuda_bounds`, `ops/cuda_minplus`, read
-through their modules, never duplicated) and, where the request runs on a
+`launches` (`ops/cuda_nn`, `ops/cuda_bounds`, `ops/cuda_minplus`,
+`ops/cuda_icp`, read through their modules, never duplicated) and, where the request runs on a
 mesh, the mesh axes' `collectives`, `bytes` and `host_copies`.
 `requests()` gives the newest `RING` records, oldest first.  The open
 request is the calling thread's, so thread hosts keep their own.
@@ -77,7 +77,10 @@ import threading
 import time
 from typing import Optional
 
-RING = 1024
+# Records kept, the newest first: a record takes ~2-4 KB of host memory, so
+# the ring holds at most 16-32 MB.  A reader of `requests()` over a longer
+# stretch than RING requests finds its oldest ones gone.
+RING = 8192
 PREFIX = "fgoicp."
 # (module, kernel wrappers) whose `launches` a request reads.
 _PKG = __name__.rsplit(".", 2)[0]
@@ -87,6 +90,7 @@ LAUNCH_COUNTERS = (
                                  "fused_bounds_lanes_trimmed",
                                  "fused_bounds")),
     (f"{_PKG}.ops.cuda_minplus", ("minplus_1d",)),
+    (f"{_PKG}.ops.cuda_icp", ("icp_align", "icp_commit")),
 )
 
 _ring: collections.deque = collections.deque(maxlen=RING)
@@ -361,6 +365,10 @@ def summary(rec: Request) -> str:
             f"host_reads {rec.host_reads}, host_wait_s "
             f"{rec.host_wait_s:.4f}\n\tspans: {spans}\n\tcounts: {counts}"
             f"\n\tlaunches: {launches}")
+    if "icp_iterations" in rec.counts:
+        text += (f"\n\ticp: icp_iterations {rec.counts['icp_iterations']}, "
+                 f"on the kernels {rec.launches.get('icp_commit', 0)} "
+                 f"(icp_commit launches)")
     if "outer_steps" in rec.counts:
         text += (f"\n\tsearch: outer_steps {rec.counts['outer_steps']}, "
                  f"pool_steps {rec.counts['pool_steps']}, inner_nodes "
