@@ -7,56 +7,12 @@ Phases, each failing the run (nonzero exit) on its first failed check:
   1. print the GPU's name and power limit (nvidia-smi) and the torch / CUDA
      versions; build the CUDA kernels from `fgoicp_tpu_torch/csrc` and print
      the build seconds;
-  2. compare each kernel with its plain torch version on the card at the
-     main paths' shapes (nn_argmin / nn_min d2 and idx bit-equal, also at
-     M in {1, 127, 129} x T in {1, 1023, 1025, 2049}, on a duplicated grid
-     whose tied copies fall in different target slices and where every d2
-     is above BIG, with more than one slice planned at the polish shape;
-     bounds rtol 2e-4 / atol 2e-5 and lb <= ub) and time both with CUDA
-     events, beside the kernel's bound (operations or bytes at the H100's
-     published peaks; for the NN kernels also the instruction-issue
-     ceiling), one PyTorch library call where one computes the same function,
-     and, for the trimmed lanes, the unfused path (nearest-proxy kernel plus
-     the torch bisection bracket); the three box-pruned bound kernels
-     (`fused_bounds_lanes`, `fused_bounds`, `fused_bounds_lanes_trimmed`)
-     also bit-equal to their plain versions with one-hot point weights
-     (each node's sum is then one term; the trimmed kernel at n_drop 0,
-     where lb and ub are functions of that term) for every source point at
-     the main paths' shapes and at edge shapes (P in {1, 31, 33, 1024, 2049} x ns in {1, 129,
-     3000}, points on box faces and corners, duplicated proxies split
-     across buckets, every d2 above BIG), with the (point, proxy) pairs and
-     (point, box) tests they evaluate from their counters, which set their
-     bound (the full scan's beside it), the issue ceiling of that work, and
-     their time given the backend's buckets and the source order, as GoICP
-     gives them, and given a bare proxies tensor; and `minplus_1d`
-     bit-equal to its plain version on seeded, constant, negative and
-     few-valued lines and on the three passes of the EDT of the smoke
-     target's field at lut_resolution 0.002, timed per full pass, with the
-     (line, i, j) triples it evaluates and the (warp, chunk) pairs it
-     stages from its counters, which set its bound (all triples' beside
-     it; library none: no PyTorch call computes a min-plus product); and
-     the serving shapes of phase 9a (seeding nn_argmin 983,040 x 4,096 on
-     the target's 4,096-point coreset, the exact rescore nn_min 3,840,000 x
-     6,000, the polish nn_argmin 256,000 x 6,000, the covering radius
-     nn_min 6,000 x 4,096: bit-equal, each with its slice plan, and no
-     torch.cdist where its [M, T] matrix would hold 2^31 elements or more)
-     and fused_bounds_lanes at a serving fallback's shape (2,048 source
-     clusters against the shared 1,024-point coreset); and
-     farthest_point_sample's indices equal to the plain loop's at the main
-     paths' FPS shapes (17,953 -> 1,024, 3,037 -> 1,024, 8,000 -> 2,048,
-     6,000 -> 4,096 and 6,000 -> 1,024), its ms a call, us a step and
-     latency bound (k - 1 steps at its step at n = 1), and the kernel
-     launches of a warm bunny-size GoICP construction; and the ICP
-     iteration's kernels (icp_align, icp_commit) against their plain
-     versions at the main paths' ICP shapes and thresholds (15 x 1,024 on
-     1,024, 1 x 3,037 on 17,953, 480 x 2,048 on 4,096, 32 x 8,000 on
-     6,000): from the plain loop's state at each iteration until its lanes
-     stop, R, t, last_R, last_t and the moved points within 2e-5, the SSE
-     within rtol 1e-4, last_sse and the lanes already done bit for bit,
-     done and running equal but within rounding of the threshold, and the
-     guard must fire; each one's ms a call and device time a launch
-     (profiler), and the host's ms an iteration (align, NN, commit, one
-     read) on the kernels and on the plain versions;
+  2. the kernel gate, `fgoicp_tpu_torch/scripts/kernel_check.py`'s full
+     grid (`run_check("full")`): every CUDA kernel against its plain torch
+     version at synthetic main-path, mesh and edge shapes, FPS with its us
+     a step and latency bound, the ICP iteration's kernels at every step
+     until their lanes stop; the first row that does not pass fails the
+     run;
   3. run the default main path, `register(Config)` on cuda, on a seeded
      asymmetric 18,000 / 3,000-point pair with a known pose: it must
      certify (last_certified_gap <= sse_threshold), recover the pose
@@ -96,7 +52,15 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      views (3,000 to 6,000 points) at VIEW_MSE, checked first to lie between
      the views' true-pose floor and their wrong-basin seeding mse, cold then
      warm: at least one BnB fallback, which launched fused_bounds_lanes, and
-     every pair certified and recovered (R < 5e-3, t < 2e-3 x span);
+     every pair certified and recovered (R < 5e-3, t < 2e-3 x span).
+     The cold runs of phases 3 to 7 and 9 run under kernel_check's
+     recorder (`Recorder`; phase 8 builds its fields outside them): then
+     every distinct shape at which they launched nn_argmin, nn_min, the
+     three bound kernels and minplus_1d (the main paths, trimmed, grouped,
+     the LUT field's three EDT passes, the serving batch's seeding,
+     rescore, polish and covering radius, a fallback's lane kernel) is
+     held against its plain version (`Recorder.check`), and each of the
+     six must be held at some shape;
  10. the device outer loop (outer_mode = "device"): 10a search-only and 10b
      trimmed search-only through register(Config), cold then warm, each
      certified at the known pose, launching the NN kernels and its bound
@@ -139,12 +103,9 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      lie within sse_threshold of the single device's (phases 4, 6, 5, 10a;
      9a's pairs), and the path's kernels launch (point-sharded trimming
      must not launch the trimmed lane kernel); rank 0 of each sub-phase
-     keeps the arguments of every distinct shape at which its cold runs
-     launch nn_argmin, nn_min, fused_bounds_lanes or fused_bounds, and holds
-     each against the plain version (NN bit for bit, bounds at rtol 2e-4 /
-     atol 2e-5), with its time, bound and library time (for the pruned
-     bound kernels the bound of the work their counters report, the full
-     scan's beside it); each of the four must be held at some shape.
+     records its cold runs (kernel_check's `Recorder`) and holds every
+     launch shape against the plain version; nn_argmin, nn_min,
+     fused_bounds_lanes and fused_bounds must each be held at some shape.
      Walls, nodes, collectives, gathered bytes, host copies and per-rank
      launches are printed beside the card's name and power limit;
  13. hosts on meshes (`parallel/distributed.py::make_host_mesh`): 2 hosts,
@@ -158,15 +119,13 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      matrices, a host's mesh ranks end in equal states, donated == stolen
      counted once a host, and the path's kernels launch (13c: minplus_1d 3
      times a rank, no proxy lane kernel); rank 0 of each sub-phase holds
-     its cold run's launch shapes against the plain versions (minplus_1d
-     bit for bit, with the triples its counters report);
+     its cold run's launch shapes against the plain versions (`Recorder`);
  14. the rest of the slice: search-only and device search-only with
      pool_update = "merge" (certified, best_sse within sse_threshold of
      phases 4 and 10a, nodes and steps beside sort's); the CLI on the smoke
      pair three times at once, plain, --debug-nans (the same result TOML)
      and --profile DIR (a Chrome trace naming nn_kernel and
-     bounds_lanes_kernel); `python -m fgoicp_tpu_torch.scripts.kernel_check
-     --grid reduced` (every row passes);
+     bounds_lanes_kernel);
  15. the experiment tools of fgoicp_tpu_torch/scripts, called as functions
      (`tools_phase`): 15a step_decomp at its defaults (the pieces sum to no
      more than a step); 15b micro_step at its defaults, or, where its drain
@@ -181,10 +140,10 @@ Phases, each failing the run (nonzero exit) on its first failed check:
      fallback (every pair certified; a fallback that launches
      fused_bounds_lanes_trimmed).
      Every launch shape the tools give a kernel is held against its plain
-     version afterwards (the plain version once a shape), with its time,
-     bound and library time.
-Every launch counter is set to 0 just before each path and read just
-after; the phase lines also give the NN kernels' launches per (M, T).  With
+     version afterwards (`Recorder`).
+Each path's launches are the deltas of the wrappers' counters over it
+(`utils/trace.py::launch_counts`); the phase lines also give the NN
+kernels' launches per (M, T).  With
 --profile, one warm run each of trimmed search-only, search-only, grouped
 search-only, device search-only and a 9a batch is then traced with
 torch.profiler (device time
@@ -193,12 +152,15 @@ the phase's bound kernel, for serving the NN kernel).  Every time and rate
 of phase 9 is printed beside the card's name and power limit.
 
 Earlier lines report walls, node counts, launch counts and a JSON line of
-the kernels; the last line is {"ok": true, "device": {...}}.  Needs a CUDA
-GPU (exits nonzero without one) and imports nothing of JAX.
+every kernel row (the grid's and the recorded launches'); the last line
+is {"ok": true, "device": {...}}.  Needs a CUDA GPU (exits nonzero without
+one) and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -207,36 +169,17 @@ import time
 
 import numpy as np
 
+from fgoicp_tpu_torch.scripts import kernel_check as kc
+from fgoicp_tpu_torch.scripts import workloads
+
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
-# Published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
-# tensor cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# The H100 SXM's instruction-issue rate: one warp instruction per clock on
-# each of 4 x 132 schedulers at the 1.98 GHz boost clock.  With --fmad=false
-# every sub, mul, add and min of a distance issues on its own: the NN
-# kernels issue about 9.25 (nn_min) and 9.75 (nn_argmin) instructions per
-# (query, target) pair, which sets their issue ceiling below.
-INSTR_RATE = 132 * 4 * 32 * 1.98e9
-NN_INSTRS = {"nn_min": 9.25, "nn_argmin": 9.75}
-# The untrimmed bound kernels' box-pruned search (csrc/bounds_terms.cuh):
-# 9.25 issues per (point, proxy) pair evaluated, as nn_min, and about 19 per
-# (point, box) test (6 sub, 6 max, 3 mul, 2 add, a compare and the vote;
-# counted from the source).  Their bound counts the flops of that work: 8 a
-# pair (3 sub, 3 mul, 2 add) and 17 a box test (6 sub, 6 max, 3 mul, 2 add),
-# the compare and the min left out of both.
-PAIR_INSTRS, BOX_INSTRS = 9.25, 19.0
-PAIR_FLOPS, BOX_FLOPS = 8.0, 17.0
 # The reference's bunny distance-field resolution (configs/bunny.toml), at
 # which the JAX bench runs the LUT backend (bench.py bunny_lut_res0.002).
 LUT_RESOLUTION = 0.002
 # The real bunny field's dims at that resolution (BASELINE.md), which
 # phase 8 reproduces with a synthetic cloud.
 BUNNY_FIELD_DIMS = (960, 946, 741)
-# The vertex count of the skull scan of the JAX bench's serving lines
-# (data_skull.ply), which phase 9's synthetic stand-in takes.
-SKULL_POINTS = 98359
 # Phase 9b's mse threshold, by the JAX bench's rule (bench.py:297-311):
 # above every partial view's mse at its true pose (the target subsample's
 # NN floor) and below the mse of every view that seeding leaves in a wrong
@@ -246,1017 +189,45 @@ SKULL_POINTS = 98359
 # views seeded into wrong basins at 7.96e-5 and 1.03e-2; VIEW_MSE is the
 # geometric mean of 1.43e-5 and 7.96e-5.
 VIEW_MSE = 4.3e-5
-# The serving cloud's noise, a quarter of the smoke pair's: at 0.01 the
-# floors reached 9.53e-5 against a wrong basin at 1.38e-4, and at VIEW_MSE
-# 1.2e-4 between them a fallback's BnB ended with its gap open.
-SERVING_NOISE = 0.0025
-
-
-def curve(rng, s, noise=0.01):
-    """Points of the seeded asymmetric 3D Lissajous curve at parameters s
-    (the JAX package's test generator, tests/test_goicp.py::_surface_cloud)."""
-    pts = np.stack([np.cos(s), 0.7 * np.sin(2.0 * s),
-                    0.4 * np.sin(3.0 * s + 0.5)], axis=1)
-    pts = pts + rng.normal(scale=noise, size=(len(s), 3))
-    return pts.astype(np.float32)
-
-
-def surface_cloud(rng, n, noise=0.01):
-    return curve(rng, rng.uniform(0.0, 4.5, size=(n,)), noise)
-
-
-def pose(span, angle=1.8):
-    c, s = np.cos(angle), np.sin(angle)
-    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
-    return R, np.array([0.11, -0.07, 0.05], np.float32) * span
-
-
-def known_transform_pair(cloud, n_target, n_source, seed=5, angle=1.8):
-    """Target subsample + a source subsample moved by a known (R, t), with
-    R @ source + t on the target (bench.py::_known_transform_pair)."""
-    rng = np.random.default_rng(seed)
-    cloud = np.asarray(cloud, np.float32)
-    ti = rng.choice(len(cloud), size=n_target, replace=False)
-    si = rng.choice(len(cloud), size=n_source, replace=False)
-    span = float(np.ptp(cloud, axis=0).max())
-    R, t = pose(span, angle)
-    pcs = (cloud[si] - t) @ R
-    return cloud[ti], pcs, R, t, span
-
-
-def partial_overlap_pair(n_target=20000, n_source=10000, seed=3,
-                         noise=0.005):
-    """A partial-overlap scan pair at the scale of the JAX bench's
-    bunny_scans_000_045_trimmed line (20k / 10k points): the target samples
-    the curve over s in [0, 3.7], the source over [0.95, 4.5] (22.5 % of it
-    beyond the target's part), independently, with noise of about 0.2 % of
-    the span, moved by a known pose."""
-    rng = np.random.default_rng(seed)
-    pct = curve(rng, rng.uniform(0.0, 3.7, size=(n_target,)), noise)
-    src = curve(rng, rng.uniform(0.95, 4.5, size=(n_source,)), noise)
-    span = float(np.ptp(np.concatenate([pct, src]), axis=0).max())
-    R, t = pose(span)
-    return pct, (src - t) @ R, R, t, span
-
-
-def random_rotation(rng):
-    """A uniform random rotation by QR (bench.py's serving lines)."""
-    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
-    R = (q * np.sign(np.diag(q))[None, :]).astype(np.float32)
-    if np.linalg.det(R) < 0:
-        R[:, 0] *= -1
-    return R
-
-
-def turn(rng, angle):
-    """A rotation by `angle` about a uniform random axis (Rodrigues)."""
-    axis = rng.normal(size=3)
-    axis /= np.linalg.norm(axis)
-    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
-                  [-axis[1], axis[0], 0]])
-    return (np.eye(3) + np.sin(angle) * k
-            + (1 - np.cos(angle)) * k @ k).astype(np.float32)
-
-
-def serving_data():
-    """Phase 9's inputs, a stand-in for the JAX bench's serving lines
-    (bench.py::bench_serving), whose skull scan is not in the repository: a
-    seeded cloud of SKULL_POINTS points of the smoke's curve, a 6,000-point
-    target drawn from it, 32 sources of 8,000 points at uniform random
-    rotations and translations up to +-0.25 span (9a), and 8 ragged half-space
-    partial views of at most 6,000 points at random poses (9b).  Noise
-    SERVING_NOISE."""
-    cloud = surface_cloud(np.random.default_rng(9), SKULL_POINTS,
-                          noise=SERVING_NOISE)
-    rng = np.random.default_rng(11)
-    pct = cloud[rng.choice(len(cloud), size=6000, replace=False)]
-    span = float(np.ptp(cloud, axis=0).max())
-
-    def moved(points, rng):
-        R = random_rotation(rng)
-        t = rng.uniform(-0.25, 0.25, size=3).astype(np.float32) * span
-        return (points - t) @ R, (R, t)
-
-    batch = [moved(cloud[rng.choice(len(cloud), size=8000, replace=False)],
-                   rng) for _ in range(32)]
-    rng2 = np.random.default_rng(23)
-    mu = cloud.mean(axis=0)
-    views = []
-    for _ in range(8):
-        nrm = rng2.normal(size=3)
-        nrm /= np.linalg.norm(nrm)
-        part = cloud[(cloud - mu) @ nrm > 0]
-        # Ragged sizes (the weighted path): 3,000 to 6,000 points.
-        n = min(len(part), int(rng2.integers(3000, 6001)))
-        views.append(moved(part[rng2.choice(len(part), size=n,
-                                            replace=False)], rng2))
-    return dict(pct=pct, span=span,
-                sources=np.stack([s for s, _ in batch]),
-                truth=[p for _, p in batch], views=[v for v, _ in views],
-                view_truth=[p for _, p in views])
-
-
 def say(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps):
-    """Mean milliseconds per call on the card: warm-up, then CUDA events
-    around `reps` calls after a synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def timed_once(torch, fn):
-    """(fn(), its milliseconds on the card by CUDA events), one call."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(stop)
-
-
-def bound(flops, nbytes):
-    """(ms, "operations" | "bytes"): the least time the card could take,
-    the larger of flops at the f32 peak and bytes at the HBM peak."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def report(name, shape, err, ms, plain_ms, flops, nbytes, library_ms=None):
-    """Print one kernel case (errors, times, bound) and return it as the
-    fields of its JSON row."""
-    bound_ms, bound_by = bound(flops, nbytes)
-    say(f"kernel {name} [{shape}]: max_abs_err {err!r}, kernel {ms!r} ms, "
-        f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}), "
-        f"library {library_ms!r} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
-
-
-def row(name, source, replaces, case):
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=0, **case)
-
-
-def check_bounds(torch, name, got, want):
-    """Kernel (lb, ub) against the plain version's: rtol 2e-4 / atol 2e-5
-    and lb <= ub on every node.  Returns the max abs error."""
-    torch.cuda.synchronize()
-    for nm, k, p in (("lb", got[0], want[0]), ("ub", got[1], want[1])):
-        if not bool(torch.all(torch.isfinite(k))):
-            raise AssertionError(f"{name} {nm}: non-finite values")
-        if not torch.allclose(k, p, rtol=2e-4, atol=2e-5):
-            raise AssertionError(
-                f"{name} {nm}: max abs err {float((k - p).abs().max())} "
-                f"beyond rtol 2e-4 / atol 2e-5")
-    if not bool(torch.all(got[0] <= got[1] + 1e-5)):
-        raise AssertionError(f"{name}: lb > ub on some node")
-    return max(float((got[0] - want[0]).abs().max()),
-               float((got[1] - want[1]).abs().max()))
-
-
-def nn_equal(torch, name, out_k, out_p):
-    """The NN kernel's d2 (and idx) against its plain version's, bit for
-    bit: the kernel rounds every operation as the plain version does and
-    its merge across target slices is exact.  Returns the max abs error."""
-    torch.cuda.synchronize()
-    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
-    out_p = out_p if isinstance(out_p, tuple) else (out_p,)
-    for nm, k, p in zip(("d2", "idx"), out_k, out_p):
-        if not torch.equal(k, p):
-            n_bad = int((k != p).sum())
-            raise AssertionError(f"{name}: {n_bad} {nm} values differ from "
-                                 f"the plain version")
-    return float((out_k[0] - out_p[0]).abs().max()) if out_k[0].numel() \
-        else 0.0
-
-
-def nn_edges(torch, dev):
-    """Phase 2, the NN kernels at edge shapes against their plain versions,
-    bit for bit: M in {1, 127, 129} x T in {1, 1023, 1025, 2049}; a 16^3
-    grid listed 3 times (12,288 targets, copies 4,096 apart in different
-    target slices) queried at its nodes and at midpoints (exact ties
-    everywhere; exact hits must take the first copy); and queries 3.5e5 away
-    (every d2 above BIG: (BIG, 0))."""
+def snapshot():
+    """The kernel wrappers' launch counts and the NN wrappers' launches per
+    (M, T), now; `since` reads them back as deltas."""
     from fgoicp_tpu_torch.ops import cuda_nn
-
-    rng = np.random.default_rng(17)
-    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                    device=dev)
-
-    def both(label, q, p):
-        out = cuda_nn.nn_argmin(q, p)
-        nn_equal(torch, f"nn_argmin {label}", out,
-                 cuda_nn.nn_argmin_plain(q, p))
-        nn_equal(torch, f"nn_min {label}", cuda_nn.nn_min(q, p),
-                 cuda_nn.nn_min_plain(q, p))
-        return out
-
-    for m in (1, 127, 129):
-        for t in (1, 1023, 1025, 2049):
-            both(f"[{m}x{t}]", f32(rng.uniform(-1, 1, (m, 3))),
-                 f32(rng.uniform(-1, 1, (t, 3))))
-    grid = np.mgrid[0:16, 0:16, 0:16].reshape(3, -1).T.astype(np.float32)
-    pts, qs = f32(np.concatenate([grid] * 3)), f32(np.concatenate(
-        [grid, grid + np.float32(0.5), grid + np.float32([0.5, 0, 0])]))
-    splits, chunk = cuda_nn._plan(dev, qs.shape[0], pts.shape[0])
-    if splits < 3 or chunk > grid.shape[0]:
-        raise AssertionError(f"duplicated grid: plan {splits} x {chunk} "
-                             f"keeps tied copies in one slice")
-    d2, idx = both("duplicated grid", qs, pts)
-    n = grid.shape[0]
-    if not (torch.equal(idx[:n].cpu(), torch.arange(n, dtype=torch.int32))
-            and int(idx.max()) < n and not bool(d2[:n].any())):
-        raise AssertionError("duplicated grid: exact hits not on the first "
-                             "copy")
-    far_q = f32(rng.uniform(-1, 1, (700, 3)) - 2e5)
-    d2, idx = both("far away", far_q, f32(rng.uniform(-1, 1, (5000, 3))))
-    if not (bool(torch.all(d2 == cuda_nn.BIG)) and not bool(idx.any())):
-        raise AssertionError("far away: not (BIG, 0)")
-    say(f"kernel nn_argmin / nn_min edge cases: [1, 127, 129] x [1, 1023, "
-        f"1025, 2049], duplicated grid {tuple(qs.shape)} x "
-        f"{tuple(pts.shape)} in {splits} slices of {chunk}, far away "
-        f"(BIG, 0): bit-equal to the plain versions")
+    from fgoicp_tpu_torch.utils import trace
+    return trace.launch_counts(), {
+        fn.__name__: collections.Counter(fn.shapes)
+        for fn in (cuda_nn.nn_argmin, cuda_nn.nn_min)}
 
 
-def plain_terms(torch, base, gids, t_lanes, proxies, gam_ub, gam_lb,
-                gam_t_lanes, slack):
-    """The plain version's per-point terms (lt, ut) [nodes, ns] with unit
-    weights.  With one-hot weights at point j its sums are column j bit for
-    bit: every other term is +0."""
-    from fgoicp_tpu_torch.ops import cuda_bounds
-    ones = torch.ones(base.shape[1], dtype=torch.float32, device=base.device)
-    parts = list(cuda_bounds._lane_terms_plain(
-        base, gids, t_lanes, proxies, gam_ub, gam_lb, gam_t_lanes, slack,
-        ones))
-    return (torch.cat([lt for _, _, lt in parts]),
-            torch.cat([ut for _, ut, _ in parts]))
+def since(snap):
+    """(launches by kernel, NN launches by M x T) since `snap`."""
+    launches, shapes = snapshot()
+    return ({k: v - snap[0][k] for k, v in launches.items()},
+            {k: {f"{m}x{t}": n for (m, t), n in sorted((c - snap[1][k])
+                                                        .items())}
+             for k, c in shapes.items()})
 
 
-def one_hot_terms(torch, name, kernel, terms, points=None, plain=None):
-    """The bound kernel's (lb, ub) with one-hot point weights at each source
-    point j of `points` (default every point), bit for bit against column j
-    of the plain version's terms (lt, ut) [nodes, ns] (`plain_terms`): each
-    node's sum is then that single term, computed with the same rounding,
-    so any difference is a wrong nearest-proxy value.  When plain is given,
-    the plain version's own one-hot sums are held to those columns at
-    `picks_of(ns)`.  kernel(w) / plain(w) take the weights [ns]."""
-    lt, ut = terms
-    ns = lt.shape[1]
-    points = list(range(ns)) if points is None else list(points)
-    got_lb = torch.empty((len(points), lt.shape[0]), device=lt.device)
-    got_ub = torch.empty_like(got_lb)
-    w1 = torch.zeros(ns, dtype=torch.float32, device=lt.device)
-    for row, j in enumerate(points):
-        w1.zero_()
-        w1[j] = 1.0
-        lb, ub = kernel(w1)
-        got_lb[row], got_ub[row] = lb.reshape(-1), ub.reshape(-1)
-    for j in (picks_of(ns) if plain is not None else ()):
-        w1.zero_()
-        w1[j] = 1.0
-        lb, ub = plain(w1)
-        if not (torch.equal(lb.reshape(-1), lt[:, j])
-                and torch.equal(ub.reshape(-1), ut[:, j])):
-            raise AssertionError(f"{name}: the plain version's one-hot sums "
-                                 f"at point {j} are not its terms")
-    for nm, k, p in (("lb", got_lb, lt.T[points]), ("ub", got_ub,
-                                                    ut.T[points])):
-        if not torch.equal(k, p):
-            bad = [points[r] for r in
-                   (k != p).any(dim=1).nonzero()[:, 0].tolist()]
-            raise AssertionError(f"{name}: one-hot {nm} differs from the "
-                                 f"plain version at {len(bad)} points, "
-                                 f"e.g. {bad[:8]}")
-
-
-def trimmed_one_hot(torch, terms):
-    """What the trimmed lane kernel returns at n_drop 0 with one-hot
-    weights at point j, from the plain version's terms (lt, ut) [nodes, ns]
-    (`plain_terms`): its bisection sees one term x and zeros, so lo becomes
-    0.5 * (lo + x) 26 times and hi stays x; ub ("under", threshold hi) is x
-    itself and lb ("over", threshold lo) is x where x <= lo, else lo.
-    Returned as (lb, ub) columns for `one_hot_terms`."""
-    from fgoicp_tpu_torch.ops import cuda_bounds
-    lt, ut = terms
-    lo = torch.zeros_like(lt)
-    for _ in range(cuda_bounds.BISECT_ITERS):
-        lo = 0.5 * (lo + lt)
-    return torch.where(lt <= lo, lt, lo), ut
-
-
-def picks_of(ns, n=6):
-    """Point indices for one-hot checks: the first, the last and n drawn
-    from their own seed (the other inputs' draws stay as they were)."""
-    rng = np.random.default_rng(ns)
-    return sorted({0, ns - 1, *rng.integers(0, ns, size=n).tolist()})
-
-
-def pair_counts(torch, launch):
-    """(pairs evaluated, box tests) of one kernel launch, from the kernel's
-    counters: launch(counts) runs it with an int64 [2] counter tensor."""
-    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
-    launch(counts)
-    torch.cuda.synchronize()
-    return [int(v) for v in counts.cpu()]
-
-
-def bounds_edges(torch, dev):
-    """Phase 2, the three pruned bound kernels at edge shapes against their
-    plain versions: lb / ub within rtol 2e-4 / atol 2e-5 with cluster-like
-    weights (a 0/1 mask and n_drop 0.3 ns for the trimmed kernel), and bit
-    for bit with one-hot weights (at every point given the proxies' buckets
-    and the source order, at `picks_of` given a bare proxies tensor and no
-    order; the trimmed kernel at n_drop 0, `trimmed_one_hot`), on 8 lanes
-    of 2 groups and a 2 x 4 grid:
-    P in {1, 31, 33, 1024, 2049} x ns in {1, 129, 3000} (seeded clouds);
-    proxies on an 8^3 grid with queries on its nodes and face midpoints
-    (points on box faces and corners); 33 copies of one proxy split across
-    buckets; and every d2 above BIG."""
-    from fgoicp_tpu_torch.ops import cuda_bounds
-
-    rng = np.random.default_rng(19)
-    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                    device=dev)
-
-    def check(label, src, proxies, t_l, rotate=True):
-        ns = src.shape[0]
-        c, s_ = np.cos(0.3), np.sin(0.3)
-        R = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32)
-        base = f32(np.stack([src, src @ R.T if rotate else src]))
-        prox = f32(proxies)
-        gam_ub = f32(rng.uniform(0.0, 0.05, size=(2, ns)))
-        gam_lb = gam_ub + f32(rng.uniform(0.0, 0.02, size=(2, ns)))
-        w = f32(rng.integers(1, 6, size=(ns,)))
-        gids = torch.as_tensor(np.arange(8) % 2, dtype=torch.int32,
-                               device=dev)
-        t_l, gam_t = f32(t_l), f32(rng.uniform(0.0, 0.1, size=(8,)))
-        tc, gt = t_l.reshape(2, 4, 3), gam_t.reshape(2, 4)
-        slack = float(np.float32(0.01))
-        buckets = cuda_bounds.proxy_buckets(prox)
-        order = cuda_bounds.source_order(f32(src))
-        lanes = lambda wt, px=buckets, po=order: \
-            cuda_bounds.fused_bounds_lanes(
-                base, gids, t_l, px, gam_ub, gam_t, slack, point_weights=wt,
-                gam_lb=gam_lb, point_order=po)
-        lanes_p = lambda wt: cuda_bounds.fused_bounds_lanes_plain(
-            base, gids, t_l, prox, gam_ub, gam_lb, gam_t, slack, wt)
-        grid = lambda wt, px=buckets, po=order: cuda_bounds.fused_bounds(
-            base, tc, px, gam_ub, gt, slack, point_weights=wt,
-            gam_lb=gam_lb, point_order=po)
-        grid_p = lambda wt: cuda_bounds.fused_bounds_plain(
-            base, tc, prox, gam_ub, gam_lb, gt, slack, wt)
-        mask = f32(rng.uniform(size=(ns,)) < 0.8)
-        n_drop = int(round(0.3 * ns))
-        # The trimmed kernel: weights given, n_drop 0 (one-hot); None, the
-        # mask and n_drop.
-        trim = lambda wt, px=buckets, po=order: \
-            cuda_bounds.fused_bounds_lanes_trimmed(
-                base, gids, t_l, px, gam_ub, gam_t, slack,
-                n_drop if wt is None else 0,
-                point_weights=mask if wt is None else wt, gam_lb=gam_lb,
-                point_order=po)
-        trim_p = lambda wt: cuda_bounds.fused_bounds_lanes_trimmed_plain(
-            base, gids, t_l, prox, gam_ub, gam_lb, gam_t, slack,
-            mask if wt is None else wt, n_drop if wt is None else 0)
-        grid_ids = torch.arange(2, dtype=torch.int32,
-                                device=dev).repeat_interleave(4)
-        for name, k, p, ids, wts in (
-                ("fused_bounds_lanes", lanes, lanes_p, gids, w),
-                ("fused_bounds", grid, grid_p, grid_ids, w),
-                ("fused_bounds_lanes_trimmed", trim, trim_p, gids, None)):
-            check_bounds(torch, f"{name} {label}", k(wts), p(wts))
-            terms = plain_terms(torch, base, ids, t_l, prox, gam_ub, gam_lb,
-                                gam_t, slack)
-            if k is trim:
-                terms = trimmed_one_hot(torch, terms)
-            one_hot_terms(torch, f"{name} {label}", k, terms, plain=p)
-            one_hot_terms(torch, f"{name} {label} (bare proxies)",
-                          lambda wt: k(wt, prox, None), terms,
-                          picks_of(ns, 2))
-
-    for n_prox in (1, 31, 33, 1024, 2049):
-        for ns in (1, 129, 3000):
-            check(f"[P{n_prox} ns{ns}]",
-                  rng.uniform(-0.7, 0.7, size=(ns, 3)),
-                  rng.uniform(-0.9, 0.9, size=(n_prox, 3)),
-                  rng.uniform(-0.4, 0.4, size=(8, 3)))
-    grid = np.mgrid[0:8, 0:8, 0:8].reshape(3, -1).T * np.float32(0.125)
-    half = np.float32(0.0625)
-    check("[grid nodes and faces]",
-          np.concatenate([grid, grid + [half, 0, 0], grid + [half, half, 0]]),
-          grid, np.repeat([[0, 0, 0], [0.125, 0, -0.125]], 4, axis=0),
-          rotate=False)
-    dup = np.array([[0.3, 0.1, -0.2]])
-    check("[33 copies of one proxy]",
-          np.concatenate([rng.uniform(-0.7, 0.7, size=(200, 3)),
-                          np.repeat(dup, 20, axis=0)]),
-          np.concatenate([rng.uniform(-0.9, 0.9, size=(100, 3)),
-                          np.repeat(dup, 33, axis=0),
-                          rng.uniform(-0.9, 0.9, size=(30, 3))]),
-          rng.uniform(-0.05, 0.05, size=(8, 3)))
-    check("[every d2 above BIG]", rng.uniform(-0.7, 0.7, size=(300, 3)) + 2e5,
-          rng.uniform(-0.9, 0.9, size=(700, 3)),
-          rng.uniform(-0.4, 0.4, size=(8, 3)))
-    say("kernel fused_bounds_lanes / fused_bounds / fused_bounds_lanes_"
-        "trimmed edge cases: P [1, 31, 33, "
-        "1024, 2049] x ns [1, 129, 3000], grid nodes and faces, 33 copies "
-        "of one proxy, every d2 above BIG: lb / ub within rtol 2e-4 / atol "
-        "2e-5, one-hot weights bit-equal to the plain versions at every "
-        "point (some given bare proxies)")
-
-
-def compare_kernels(torch, pct, pcs, trim_pct, trim_src, serving):
-    """Phase 2: every kernel against its plain version at main-path
-    shapes, the serving shapes of phase 9a included.  Returns the JSON rows
-    (launch counts filled in later)."""
-    from fgoicp_tpu_torch.ops import bounds as bounds_ops
-    from fgoicp_tpu_torch.ops import coreset as coreset_ops
-    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_nn
-    from fgoicp_tpu_torch.ops import geometry as geo
-
-    dev = pct.device
-    rng = np.random.default_rng(11)
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    proxy = coreset_ops.build(pct, size=1024, seed=0)
-    prox = proxy.points.contiguous()
-    n_prox = prox.shape[0]
-    slack = float(proxy.eps)
-    clusters = coreset_ops.build_weighted(pcs, size=1024, seed=2)
-    # 16 search-ICP lanes of the 3,000-point source, as the seeding sweep.
-    R16 = geo.quat_cube_to_matrix(f32(rng.uniform(-0.5, 0.5, size=(16, 3))))
-    t16 = f32(rng.uniform(-0.1, 0.1, size=(16, 1, 3)))
-    q48k = (torch.einsum("grc,nc->gnr", R16, pcs) + t16).reshape(-1, 3).contiguous()
-
-    def nn_case(name, kernel, plain, queries, points, reps, plain_reps,
-                library=True):
-        err = nn_equal(torch, name, kernel(queries, points),
-                       plain(queries, points))
-        m, t = queries.shape[0], points.shape[0]
-        splits, chunk = cuda_nn._plan(dev, m, t)
-        ms = cuda_ms(torch, lambda: kernel(queries, points), reps)
-        plain_ms = cuda_ms(torch, lambda: plain(queries, points), plain_reps)
-        # The library yardstick: exact pairwise distances, then the min.
-        reduce = (lambda d: torch.min(d, dim=1)) if name == "nn_argmin" \
-            else (lambda d: torch.amin(d, dim=1))
-        lib_ms = cuda_ms(torch, lambda: reduce(torch.cdist(
-            queries, points, compute_mode="donot_use_mm_for_euclid_dist")),
-            plain_reps) if library else None
-        if not library:
-            say(f"kernel {name} [{m}x{t}]: library refused (torch.cdist's "
-                f"[M, T] matrix of {m * t} elements is not formed)")
-        out_bytes = 4 * m * (2 if name == "nn_argmin" else 1)
-        issue_ms = NN_INSTRS[name] * m * t / INSTR_RATE * 1e3
-        say(f"kernel {name} [{m}x{t}]: {splits} target slices of {chunk} "
-            f"({-(-m // cuda_nn.QUERY_TILE) * splits} blocks), issue "
-            f"ceiling {issue_ms!r} ms")
-        return report(name, f"{m}x{t}", err, ms, plain_ms, 8.0 * m * t,
-                      12.0 * (m + t) + out_bytes, lib_ms)
-
-    # The trimmed pair's proxies, and 16 search-ICP lanes of its source's
-    # 2,048-point search subsample, as the engine draws them.
-    trim_prox = coreset_ops.build(trim_pct, size=1024, seed=0).points
-    sub = np.sort(np.random.default_rng(7).permutation(
-        trim_src.shape[0])[:2048])
-    q32k = (torch.einsum("grc,nc->gnr", R16,
-                         trim_src[torch.from_numpy(sub).to(dev)])
-            + t16).reshape(-1, 3).contiguous()
-    argmin = (cuda_nn.nn_argmin, cuda_nn.nn_argmin_plain)
-    nmin = (cuda_nn.nn_min, cuda_nn.nn_min_plain)
-    # nn_argmin: search-ICP correspondences (16 x 3,000 against the 1,024
-    # proxies), the polish (3,000 against the 18,000-point target), the
-    # source against the proxies, the trimmed polish (10,000 against
-    # 20,000) and the trimmed search-ICP lanes (16 x 2,048 against 1,024).
-    a1 = nn_case("nn_argmin", *argmin, q48k, prox, 50, 10)
-    if cuda_nn._plan(dev, pcs.shape[0], pct.shape[0])[0] <= 1:
-        raise AssertionError("nn_argmin: one target slice planned at the "
-                             "polish shape; the merge would not run")
-    nn_case("nn_argmin", *argmin, pcs, pct, 50, 10)
-    nn_case("nn_argmin", *argmin, pcs, prox, 50, 10)
-    nn_case("nn_argmin", *argmin, trim_src, trim_pct, 50, 5)
-    nn_case("nn_argmin", *argmin, q32k, trim_prox, 50, 10)
-    # nn_min: the exact rescore (16 x 3,000 against 18,000), the proxy
-    # covering radius (18,000 against 1,024), the trimmed one (20,000
-    # against 1,024) and the trimmed rescore (16 x 10,000 against 20,000).
-    m1 = nn_case("nn_min", *nmin, q48k, pct, 20, 3)
-    nn_case("nn_min", *nmin, pct, prox, 50, 10)
-    nn_case("nn_min", *nmin, trim_pct, trim_prox, 50, 10)
-    q160k = (torch.einsum("grc,nc->gnr", R16, trim_src) + t16).reshape(
-        -1, 3).contiguous()
-    # No library time: torch.cdist refuses a 160,000 x 20,000 launch
-    # (invalid configuration argument).
-    nn_case("nn_min", *nmin, q160k, trim_pct, 10, 1, library=False)
-    del q160k, q32k
-
-    # The serving shapes: phase 9a's batch (32 pairs x 8,000 points against
-    # the 6,000-point target) as _seed_pairs hands it to the kernels, 15
-    # starts a pair, lane b * 15 + s; seeding on the 2,048-row subsample of
-    # every source against the 4,096-point coreset of the centred target.
-    sv_pct = f32(serving["pct"] - serving["pct"].mean(axis=0))
-    sv_src = f32(serving["sources"])
-    sv_src = sv_src - sv_src.mean(dim=1, keepdim=True)
-    b_sv, ns_sv = sv_src.shape[:2]
-    cover = coreset_ops.build(sv_pct, size=4096, seed=0).points.contiguous()
-    starts = f32(geo.multi_start_rotations())
-    R_lanes = starts.repeat(b_sv, 1, 1)
-    seed_lanes = lambda src: torch.einsum(
-        "grc,gnc->gnr", R_lanes, src.repeat_interleave(len(starts), 0)
-    ).reshape(-1, 3).contiguous()
-    sub = torch.from_numpy(np.random.default_rng(7).permutation(ns_sv)[
-        :2048]).to(dev)
-    # torch.cdist is not called where its [M, T] matrix has 2^31 elements
-    # or more: it refused 160,000 x 20,000 (invalid configuration).
-    fits = lambda m, t: m * t < 2 ** 31
-    q_seed = seed_lanes(sv_src[:, sub])
-    nn_case("nn_argmin", *argmin, q_seed, cover, 20, 1,
-            library=fits(q_seed.shape[0], cover.shape[0]))
-    del q_seed
-    q_rescore = seed_lanes(sv_src)
-    nn_case("nn_min", *nmin, q_rescore, sv_pct, 5, 1,
-            library=fits(q_rescore.shape[0], sv_pct.shape[0]))
-    del q_rescore
-    R_true = f32(np.stack([R for R, _ in serving["truth"]]))
-    q_polish = torch.einsum("grc,gnc->gnr", R_true, sv_src).reshape(
-        -1, 3).contiguous()
-    nn_case("nn_argmin", *argmin, q_polish, sv_pct, 20, 2,
-            library=fits(q_polish.shape[0], sv_pct.shape[0]))
-    nn_case("nn_min", *nmin, sv_pct, cover, 50, 10)
-    del q_polish
-    nn_edges(torch, dev)
-
-    def groups(g, src, spans_lo=0.03, spans_hi=0.25, deltas=None):
-        """base [g, ns, 3] and (gam_ub, gam_lb) for g random rotation
-        groups, the first half fixed-rotation (the ub pass)."""
-        Rg = geo.quat_cube_to_matrix(f32(rng.uniform(-0.6, 0.6, size=(g, 3))))
-        base = torch.einsum("grc,nc->gnr", Rg, src).contiguous()
-        spans = f32(rng.uniform(spans_lo, spans_hi, size=(g,)))
-        fix = torch.arange(g, device=dev) < g // 2
-        gam_ub, gam_lb = bounds_ops.gamma_arrays(
-            torch.linalg.vector_norm(src, dim=-1), spans, fix,
-            point_deltas=deltas)
-        return base, gam_ub.contiguous(), gam_lb.contiguous()
-
-    def lanes_of(g, lanes):
-        gids = torch.as_tensor(rng.integers(0, g, size=(lanes,)),
-                               dtype=torch.int32, device=dev)
-        t_l = f32(rng.uniform(-0.5, 0.5, size=(lanes, 3)))
-        gam_t = geo.translation_uncertainty_radius(
-            f32(rng.uniform(0.05, 0.5, size=(lanes,))))
-        return gids, t_l, gam_t
-
-    def bisect_flops(lanes, ns):
-        # The trimmed kernel's 27 passes of compares over both term arrays
-        # (26 bisection counts and the kept sums).
-        return 2.0 * 27 * lanes * ns
-
-    def lane_bytes(g, ns, lanes, n_buckets=None):
-        # base, gam_ub, gam_lb, w; gids, t, gam_t; lb, ub; the proxies, or
-        # the pruned kernels' bucket rows, boxes and source order.
-        search = 3 * n_prox if n_buckets is None else (
-            n_buckets * (3 * cuda_bounds.BUCKET + 6) + ns)
-        return 4.0 * (g * ns * 5 + ns + lanes * 7 + search)
-
-    proxy_backend = bounds_ops.ProxyBackend(coreset=proxy)
-    buckets = proxy_backend.buckets
-    n_buckets = buckets.boxes.shape[0]
-
-    def pruned_case(name, shape, src, kernel, bare, plain, launch, terms,
-                    n_pairs, nbytes, reps, plain_reps, extra_flops=0.0,
-                    proxies=None):
-        """A box-pruned kernel at a main-path shape.  kernel(w) is given the
-        backend's buckets and the source's order, as GoICP gives them;
-        bare(w) a bare proxies tensor and no order (buckets built per call);
-        plain(w) its plain version; w [ns] point weights (None: the path's).
-        lb / ub against the plain version; one-hot weights bit for bit
-        against terms (the columns one-hot weights must give) at every
-        source point through kernel, at `picks_of` through bare; the pairs evaluated and box tests
-        (launch(counts), the kernel's counters), which set its bound
-        (PAIR_FLOPS and BOX_FLOPS each, plus extra_flops, at the f32 peak,
-        against the bytes), the full scan's bound beside it, and their issue
-        ceiling; times: the kernel, the plain version, the buckets' and the
-        order's builds, and bare."""
-        ns = terms[0].shape[1]
-        err = check_bounds(torch, name, kernel(None), plain(None))
-        one_hot_terms(torch, name, kernel, terms, plain=plain)
-        one_hot_terms(torch, f"{name} (bare proxies)", bare, terms,
-                      picks_of(ns))
-        pairs, tests = pair_counts(torch, launch)
-        ms = cuda_ms(torch, lambda: kernel(None), reps)
-        plain_ms = cuda_ms(torch, lambda: plain(None), plain_reps)
-        case = report(name, shape, err, ms, plain_ms,
-                      PAIR_FLOPS * pairs + BOX_FLOPS * tests + extra_flops,
-                      nbytes)
-        case["full_scan_bound_ms"] = bound(PAIR_FLOPS * n_pairs + extra_flops,
-                                           nbytes)[0]
-        px = prox if proxies is None else proxies
-        bucket_ms = cuda_ms(torch, lambda: cuda_bounds.proxy_buckets(px),
-                            reps)
-        order_ms = cuda_ms(torch, lambda: cuda_bounds.source_order(src), reps)
-        bare_ms = cuda_ms(torch, lambda: bare(None), reps)
-        ceil_ms = (PAIR_INSTRS * pairs + BOX_INSTRS * tests) / INSTR_RATE * 1e3
-        full_ms = PAIR_INSTRS * n_pairs / INSTR_RATE * 1e3
-        say(f"kernel {name} [{shape}] pruning (kernel counters): {pairs} of "
-            f"{n_pairs} pairs evaluated ({pairs / n_pairs!r}), {tests} box "
-            f"tests; bound {case['bound_ms']!r} ms for these (full scan "
-            f"{case['full_scan_bound_ms']!r} ms), issue ceiling {ceil_ms!r} "
-            f"ms (full scan {full_ms!r} ms); buckets build {bucket_ms!r} ms, "
-            f"source order build {order_ms!r} ms, wrapper given bare proxies "
-            f"{bare_ms!r} ms; one-hot weights bit-equal at all {ns} points")
-        return case
-
-    # fused_bounds_lanes: G = 256 groups (ub + lb pass of 128 children),
-    # L = 1024 lanes, 1,024 cluster reps, 1,024 proxies.
-    g, lanes, reps_pts = 256, 1024, clusters.reps
-    base, gam_ub, gam_lb = groups(g, reps_pts, deltas=clusters.deltas)
-    gids, t_l, gam_t = lanes_of(g, lanes)
-    w = clusters.weights.contiguous()
-    ns = reps_pts.shape[0]
-    slack32 = float(np.float32(slack))
-    order1 = cuda_bounds.source_order(reps_pts)
-    b1 = pruned_case(
-        "fused_bounds_lanes", f"G{g} L{lanes} ns{ns} P{n_prox}", reps_pts,
-        lambda wt: cuda_bounds.fused_bounds_lanes(
-            base, gids, t_l, buckets, gam_ub, gam_t, slack,
-            point_weights=w if wt is None else wt, gam_lb=gam_lb,
-            point_order=order1),
-        lambda wt: cuda_bounds.fused_bounds_lanes(
-            base, gids, t_l, prox, gam_ub, gam_t, slack,
-            point_weights=w if wt is None else wt, gam_lb=gam_lb),
-        lambda wt: cuda_bounds.fused_bounds_lanes_plain(
-            base, gids, t_l, prox, gam_ub, gam_lb, gam_t, slack32,
-            w if wt is None else wt),
-        lambda c: cuda_bounds._launch_lanes(
-            base, gids, t_l, gam_ub, gam_lb, gam_t, w, slack32, buckets,
-            order1, c),
-        plain_terms(torch, base, gids, t_l, prox, gam_ub, gam_lb, gam_t,
-                    slack32),
-        lanes * ns * n_prox, lane_bytes(g, ns, lanes, n_buckets), 50, 5)
-
-    # fused_bounds_lanes at a serving fallback's shape: 9a's first source
-    # normalized as GoICP does, its 2,048 automatic clusters, and the
-    # service's shared 1,024-point coreset of the centred target rescaled
-    # to the pair (GoICP shared_proxy).
-    scale_fb = 1.0 / torch.max(torch.abs(sv_src[0]))
-    shared = coreset_ops.build(sv_pct, size=1024, seed=0)
-    prox_fb = (shared.points * scale_fb).contiguous()
-    slack_fb = float(np.float32(float(shared.eps * scale_fb)))
-    cl_fb = coreset_ops.build_weighted(sv_src[0] * scale_fb, size=2048,
-                                       seed=2)
-    base_fb, gub_fb, glb_fb = groups(g, cl_fb.reps, deltas=cl_fb.deltas)
-    gids_fb, t_fb, gt_fb = lanes_of(g, lanes)
-    w_fb = cl_fb.weights.contiguous()
-    ns_fb = cl_fb.reps.shape[0]
-    buckets_fb = cuda_bounds.proxy_buckets(prox_fb)
-    order_fb = cuda_bounds.source_order(cl_fb.reps)
-    pruned_case(
-        "fused_bounds_lanes",
-        f"G{g} L{lanes} ns{ns_fb} P{prox_fb.shape[0]} (serving fallback)",
-        cl_fb.reps,
-        lambda wt: cuda_bounds.fused_bounds_lanes(
-            base_fb, gids_fb, t_fb, buckets_fb, gub_fb, gt_fb, slack_fb,
-            point_weights=w_fb if wt is None else wt, gam_lb=glb_fb,
-            point_order=order_fb),
-        lambda wt: cuda_bounds.fused_bounds_lanes(
-            base_fb, gids_fb, t_fb, prox_fb, gub_fb, gt_fb, slack_fb,
-            point_weights=w_fb if wt is None else wt, gam_lb=glb_fb),
-        lambda wt: cuda_bounds.fused_bounds_lanes_plain(
-            base_fb, gids_fb, t_fb, prox_fb, gub_fb, glb_fb, gt_fb, slack_fb,
-            w_fb if wt is None else wt),
-        lambda c: cuda_bounds._launch_lanes(
-            base_fb, gids_fb, t_fb, gub_fb, glb_fb, gt_fb, w_fb, slack_fb,
-            buckets_fb, order_fb, c),
-        plain_terms(torch, base_fb, gids_fb, t_fb, prox_fb, gub_fb, glb_fb,
-                    gt_fb, slack_fb),
-        lanes * ns_fb * prox_fb.shape[0],
-        lane_bytes(g, ns_fb, lanes, buckets_fb.boxes.shape[0]), 50, 5,
-        proxies=prox_fb)
-    del base_fb, gub_fb, glb_fb
-
-    # fused_bounds_lanes_trimmed: the trimmed pooled lanes of the partial-
-    # overlap pair, L = 1024 lanes over the full 10,000-point source,
-    # n_drop = 3,000 (trim_fraction 0.3); and a few lanes of a 30,000-point
-    # source, whose terms exceed shared memory (scratch path).  One-hot
-    # weights run at n_drop 0, where the kernel's lb / ub are functions of
-    # the one term (`trimmed_one_hot`); every other call at the path's
-    # n_drop with unit weights.
-    def trimmed_case(shape, src, base_, gids_, t_, gub_, glb_, gt_, n_drop_,
-                     reps):
-        ones_ = torch.ones(src.shape[0], dtype=torch.float32, device=dev)
-        order_ = cuda_bounds.source_order(src)
-        pick = lambda wt: (ones_, n_drop_) if wt is None else (wt, 0)
-        lanes_ = gids_.shape[0]
-
-        def kernel(wt, px=buckets, po=order_):
-            w_, k_ = pick(wt)
-            return cuda_bounds.fused_bounds_lanes_trimmed(
-                base_, gids_, t_, px, gub_, gt_, slack, k_, point_weights=w_,
-                gam_lb=glb_, point_order=po)
-
-        def plain(wt):
-            w_, k_ = pick(wt)
-            return cuda_bounds.fused_bounds_lanes_trimmed_plain(
-                base_, gids_, t_, prox, gub_, glb_, gt_, slack32, w_, k_)
-
-        case = pruned_case(
-            "fused_bounds_lanes_trimmed", shape, src, kernel,
-            lambda wt: kernel(wt, prox, None), plain,
-            lambda c: cuda_bounds._launch_lanes_trimmed(
-                base_, gids_, t_, gub_, glb_, gt_, ones_, slack32, n_drop_,
-                buckets, order_, c),
-            trimmed_one_hot(torch, plain_terms(
-                torch, base_, gids_, t_, prox, gub_, glb_, gt_, slack32)),
-            lanes_ * src.shape[0] * n_prox,
-            lane_bytes(base_.shape[0], src.shape[0], lanes_, n_buckets),
-            reps, 1, bisect_flops(lanes_, src.shape[0]))
-        return case, kernel
-
-    ns5 = trim_src.shape[0]
-    n_drop = int(round(0.3 * ns5))
-    base5, gub5, glb5 = groups(g, trim_src)
-    gids5, t5, gt5 = lanes_of(g, lanes)
-    b5, trimmed5 = trimmed_case(
-        f"G{g} L{lanes} ns{ns5} P{n_prox} n_drop{n_drop}", trim_src, base5,
-        gids5, t5, gub5, glb5, gt5, n_drop, 10)
-    trimmed = lambda: trimmed5(None)
-
-    def unfused():
-        """The unfused trimmed lane path: the nearest-proxy kernel on all
-        L x ns queries, then the torch terms and bisection brackets."""
-        lb_pt, ub_pt = bounds_ops.point_terms(
-            proxy_backend, base5[gids5.long()] + t5[:, None, :],
-            gub5[gids5.long()], glb5[gids5.long()], gt5)
-        keep = ns5 - n_drop
-        return (bounds_ops.reduce_point_terms(lb_pt, None, keep,
-                                              drop_mode="over"),
-                bounds_ops.reduce_point_terms(ub_pt, None, keep,
-                                              drop_mode="under"))
-
-    # The unfused path forms each trimmed bound as a lane total minus its
-    # drop sum, so its rounding shows relative to the untrimmed total
-    # (rtol 2e-4 of it).
-    fused, plain_u = trimmed(), unfused()
-    totals = cuda_bounds.fused_bounds_lanes(base5, gids5, t5, prox, gub5,
-                                            gt5, slack, gam_lb=glb5)
-    err_u = 0.0
-    for k, p, tot in zip(fused, plain_u, totals):
-        err = (k - p).abs()
-        err_u = max(err_u, float(err.max()))
-        if not bool(torch.all(err <= 2e-5 + 2e-4 * tot.abs())):
-            raise AssertionError(f"unfused trimmed lanes: max abs err "
-                                 f"{float(err.max())} beyond 2e-4 of the "
-                                 f"lane totals")
-    unfused_ms = cuda_ms(torch, unfused, 5)
-    b5_again_ms = cuda_ms(torch, trimmed, 10)
-    say(f"trimmed lanes, fused kernel vs unfused path (nn_min kernel + "
-        f"torch bracket): fused {b5['ms']!r} / "
-        f"{b5_again_ms!r} ms, unfused {unfused_ms!r} ms, max_abs_err "
-        f"{err_u!r}")
-
-    src30 = torch.cat([trim_src, trim_src * 0.97, trim_src * 1.03])
-    base6, gub6, glb6 = groups(8, src30)
-    gids6, t6, gt6 = lanes_of(8, 32)
-    n_drop6 = int(round(0.3 * src30.shape[0]))
-    trimmed_case(f"G8 L32 ns{src30.shape[0]} P{n_prox} n_drop{n_drop6} "
-                 f"(terms in scratch)", src30, base6, gids6, t6, gub6, glb6,
-                 gt6, n_drop6, 5)
-
-    # fused_bounds: the grouped scheduler's grid, G = 256 groups x B = 32
-    # translation nodes over the full 3,000-point source.
-    n_trans, ns4 = 32, pcs.shape[0]
-    base4, gub4, glb4 = groups(g, pcs)
-    tc4 = f32(rng.uniform(-0.5, 0.5, size=(g, n_trans, 3)))
-    gt4 = geo.translation_uncertainty_radius(
-        f32(rng.uniform(0.05, 0.5, size=(g, n_trans))))
-    ones4 = torch.ones(ns4, dtype=torch.float32, device=dev)
-    order4 = cuda_bounds.source_order(pcs)
-    gids4 = torch.arange(g, dtype=torch.int32, device=dev).repeat_interleave(
-        n_trans)
-    b4 = pruned_case(
-        "fused_bounds", f"G{g} B{n_trans} ns{ns4} P{n_prox}", pcs,
-        lambda wt: cuda_bounds.fused_bounds(
-            base4, tc4, buckets, gub4, gt4, slack, point_weights=wt,
-            gam_lb=glb4, point_order=order4),
-        lambda wt: cuda_bounds.fused_bounds(
-            base4, tc4, prox, gub4, gt4, slack, point_weights=wt,
-            gam_lb=glb4),
-        lambda wt: cuda_bounds.fused_bounds_plain(
-            base4, tc4, prox, gub4, glb4, gt4, slack32,
-            ones4 if wt is None else wt),
-        lambda c: cuda_bounds._launch_grid(base4, tc4, gub4, glb4, gt4,
-                                           ones4, slack32, buckets, order4, c),
-        plain_terms(torch, base4, gids4, tc4.reshape(-1, 3), prox, gub4,
-                    glb4, gt4.reshape(-1), slack32),
-        g * n_trans * ns4 * n_prox,
-        4.0 * (g * ns4 * 5 + ns4 + g * n_trans * 6
-               + n_buckets * (3 * cuda_bounds.BUCKET + 6) + ns4), 10, 1)
-    bounds_edges(torch, dev)
-
-    bounds_src = "fgoicp_tpu_torch/csrc/"
-    return [
-        row("nn_argmin", "fgoicp_tpu_torch/csrc/nn.cu",
-            "fgoicp_tpu/ops/pallas_nn.py:106", a1),
-        row("nn_min", "fgoicp_tpu_torch/csrc/nn.cu",
-            "fgoicp_tpu/ops/pallas_nn.py:152", m1),
-        row("fused_bounds_lanes", bounds_src + "bounds_lanes.cu",
-            "fgoicp_tpu/ops/pallas_bounds.py:311", b1),
-        row("fused_bounds_lanes_trimmed", bounds_src + "bounds_lanes_trimmed.cu",
-            "fgoicp_tpu/ops/pallas_bounds.py:227", b5),
-        row("fused_bounds", bounds_src + "bounds_grid.cu",
-            "fgoicp_tpu/ops/pallas_bounds.py:404", b4),
-    ]
-
-
-def compare_minplus(torch, norm, resolution=LUT_RESOLUTION):
-    """Phase 2, `minplus_1d`: the kernel against its plain version, bit for
-    bit, on seeded random lines (every third all BIG, as unseeded grid
-    lines), constant, negative and few-valued lines, and on the three
-    passes of the EDT of the smoke target's field at lut_resolution 0.002,
-    whose inputs are the seeded grid and the permuted outputs of the passes
-    before; kernel and plain times per full pass by CUDA events, beside the
-    bound: an add and a min per (line, i, j) triple the kernel evaluated
-    (its counter; it skips triples that cannot win) at the f32 peak,
-    against one read and one write of the grid, with the bound of all
-    L n^2 triples beside it.  No PyTorch call computes a min-plus product:
-    library none.  Returns the JSON row."""
-    from fgoicp_tpu_torch.ops import cuda_minplus
-    from fgoicp_tpu_torch.ops import distance_field as df
-
-    kernel, plain = cuda_minplus.minplus_1d, cuda_minplus.minplus_1d_plain
-    dev = norm.pct.device
-
-    def bit_equal(name, g):
-        got, want = kernel(g, resolution), plain(g, resolution)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            n_bad = int((got != want).sum())
-            raise AssertionError(
-                f"{name}: {n_bad} values differ from the plain version, max "
-                f"abs err {float((got - want).abs().max())!r}")
-
-    rng = np.random.default_rng(13)
-    for lines, n in ((1, 1), (7, 2047), (1000, 333)):
-        g = rng.uniform(0.0, 4.0, size=(lines, n)).astype(np.float32)
-        g[::3] = df.BIG
-        bit_equal(f"minplus_1d [{lines}x{n}]", torch.from_numpy(g).to(dev))
-    for kind, g in (
-            ("constant", np.repeat(rng.uniform(0.0, 4.0, size=(1000, 1)),
-                                   333, axis=1)),
-            ("negative", rng.uniform(-4.0, 0.5, size=(1000, 333))),
-            ("few-valued", rng.choice([0.0, 0.25, 1.0], size=(1000, 333)))):
-        bit_equal(f"minplus_1d [1000x333] {kind}",
-                  torch.from_numpy(g.astype(np.float32)).to(dev))
-    say("kernel minplus_1d [1x1], [7x2047], [1000x333] (every third line "
-        "BIG), [1000x333] constant, negative and few-valued lines: "
-        "bit-equal to the plain version")
-
-    dims = df.grid_dims(norm.target_bounds.cpu().numpy(), resolution)
-    x, y, z = dims
-    f = df._seed_grid(norm.pct, norm.target_bounds[:, 0].contiguous(),
-                      torch.tensor(resolution, device=dev), dims)
-    say(f"kernel minplus_1d: the smoke target's field at lut_resolution "
-        f"{resolution}: dims {dims}, {x * y * z} cells")
-    total = dict(ms=0.0, plain_ms=0.0, flops=0.0, full_flops=0.0,
-                 nbytes=0.0)
-    for axis, (lines, n), perm in (("z", (x * y, z), (x, y, z)),
-                                   ("y", (z * x, y), (z, x, y)),
-                                   ("x", (y * z, x), (y, z, x))):
-        g = f.reshape(lines, n)
-        bit_equal(f"minplus_1d pass {axis} [{lines}x{n}]", g)
-        counts = torch.zeros(2, dtype=torch.int64, device=dev)
-        cuda_minplus._launch(g, resolution, counts)
-        triples, staged = (int(v) for v in counts.cpu())
-        ms = cuda_ms(torch, lambda: kernel(g, resolution), 3)
-        plain_ms = cuda_ms(torch, lambda: plain(g, resolution), 1)
-        flops, nbytes = 2.0 * triples, 8.0 * lines * n
-        full_flops = 2.0 * lines * n * n
-        report("minplus_1d", f"pass {axis}, {lines}x{n}", 0.0, ms, plain_ms,
-               flops, nbytes)
-        # (warp, chunk) visits: every chunk of every tile of every warp.
-        chunks = -(-lines // cuda_minplus.WARP_LINES) * -(
-            -n // cuda_minplus.CHUNK) * -(-n // cuda_minplus.TILE_OUT)
-        say(f"kernel minplus_1d pass {axis} pruning (kernel counters): "
-            f"{triples} of {lines * n * n} triples evaluated "
-            f"({triples / (lines * n * n)!r}), {staged} of {chunks} (warp, "
-            f"chunk) visits staged; bound of all triples "
-            f"{bound(full_flops, nbytes)[0]!r} ms, issue ceiling of the "
-            f"evaluated triples {2.0 * triples / INSTR_RATE * 1e3!r} ms")
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("flops", flops),
-                       ("full_flops", full_flops), ("nbytes", nbytes)):
-            total[key] += v
-        f = kernel(g, resolution).reshape(perm).permute(2, 0, 1).contiguous()
-        del g
-    del f
-    case = report("minplus_1d", f"EDT of the {dims} field, 3 passes", 0.0,
-                  total["ms"], total["plain_ms"], total["flops"],
-                  total["nbytes"])
-    case["full_scan_bound_ms"] = bound(total["full_flops"],
-                                       total["nbytes"])[0]
-    return row("minplus_1d", "fgoicp_tpu_torch/csrc/minplus.cu",
-               "fgoicp_tpu/ops/pallas_minplus.py:75", case)
-
-
-# The FPS kernel's work a (point, step): 3 sub, 3 mul, 2 add and the min,
-# and about 17 issued instructions with the loads, the store and the
-# compare (counted from csrc/fps.cu).  One block walks every step, on one
-# SM: beside the card's bound a call prints that SM's issue time (an issue
-# ceiling, from the kernel's own count), and the latency bound: k - 1 times
-# the kernel's step at n = 1, which is a block barrier and two warp
-# reductions with no point to update (FPS_FLOOR_K steps, CUDA events).
-FPS_OPS, FPS_INSTRS = 9.0, 17.0
-SM_INSTR_RATE = INSTR_RATE / 132
-FPS_FLOOR_K = 4096
-# (n, k) of the main paths' FPS calls: the bunny proxies (17,953 -> 1,024)
-# and clusters (3,037 -> 1,024), a serving fallback's clusters (8,000 ->
-# 2,048), the serving seeding coreset (6,000 -> 4,096) and the fallbacks'
-# shared proxy (6,000 -> 1,024).
-FPS_SHAPES = ((17953, 1024), (3037, 1024), (8000, 2048), (6000, 4096),
-              (6000, 1024))
-LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-
-
-def compare_fps(torch):
-    """Phase 2, `farthest_point_sample`: the kernel's indices against the
-    plain loop's on the same CUDA tensors (equal) at FPS_SHAPES (points of
-    a seeded surface cloud), kernel and plain ms a call by CUDA events, us a
-    step, the layout, the card's bound and the latency bound (k - 1 steps
-    at the measured step floor); one SM's issue time is printed only; then
-    a warm GoICP construction of a bunny-size pair (17,953 / 3,037 points)
-    timed by the host clock, and again under torch.profiler for its kernel
-    launches and FPS launches.  Returns the JSON row."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from fgoicp_tpu_torch import GoICP
-    from fgoicp_tpu_torch.ops import cuda_fps
-
-    kernel, plain = (cuda_fps.farthest_point_sample,
-                     cuda_fps.farthest_point_sample_plain)
-    dev = torch.device("cuda")
-    cloud = surface_cloud(np.random.default_rng(1), 24000)
-    one = torch.from_numpy(np.ascontiguousarray(cloud[:1])).to(dev)
-    floor_us = 1e3 * cuda_ms(torch, lambda: kernel(one, FPS_FLOOR_K), 20) / (
-        FPS_FLOOR_K - 1)
-    say(f"kernel farthest_point_sample: step floor {floor_us!r} us (n = 1, "
-        f"{FPS_FLOOR_K} steps: one block barrier and two warp reductions)")
-    cases = []
-    for n, k in FPS_SHAPES:
-        p = torch.from_numpy(np.ascontiguousarray(cloud[:n])).to(dev)
-        got, want = kernel(p, k), plain(p, k)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"farthest_point_sample [{n}->{k}]: {int((got != want).sum())}"
-                f" indices differ from the plain loop's")
-        ms = cuda_ms(torch, lambda: kernel(p, k), 20)
-        plain_ms = cuda_ms(torch, lambda: plain(p, k), 1)
-        case = report("farthest_point_sample", f"{n}->{k}", 0.0, ms,
-                      plain_ms, FPS_OPS * n * (k - 1), 12.0 * n + 8.0 * k)
-        case.update(layout=cuda_fps.plan_layout(n),
-                    us_per_step=1e3 * ms / (k - 1), step_floor_us=floor_us,
-                    latency_bound_ms=floor_us * (k - 1) / 1e3)
-        sm_issue_ms = FPS_INSTRS * n * (k - 1) / SM_INSTR_RATE * 1e3
-        say(f"kernel farthest_point_sample [{n}->{k}]: indices equal to the "
-            f"plain loop's, layout {case['layout']}, {case['us_per_step']!r} "
-            f"us a step, latency bound {case['latency_bound_ms']!r} ms, "
-            f"one SM's issue ceiling {sm_issue_ms!r} ms")
-        cases.append(case)
-
-    pct_np, pcs_np = known_transform_pair(cloud, 17953, 3037)[:2]
-    construct = lambda: GoICP(pct_np, pcs_np, mse_threshold=1e-3,
-                              device=dev)
-    construct()
-    torch.cuda.synchronize()
-    t_run = time.time()
-    construct()
-    torch.cuda.synchronize()
-    wall_ms = (time.time() - t_run) * 1e3
-    fps0 = kernel.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        construct()
-        torch.cuda.synchronize()
-    n_launch = sum(e.count for e in prof.key_averages()
-                   if e.key in LAUNCH_KEYS)
-    say(f"bunny-size GoICP construction (17953 / 3037, warm): "
-        f"{wall_ms!r} ms, {n_launch} kernel launches, "
-        f"{kernel.launches - fps0} of them FPS")
-    return row("farthest_point_sample", "fgoicp_tpu_torch/csrc/fps.cu",
-               "none (fgoicp_tpu/ops/coreset.py: a lax.fori_loop)",
-               dict(cases=cases, construct_ms=wall_ms,
-                    construct_launches=n_launch,
-                    construct_fps_launches=kernel.launches - fps0))
+def held(label, rows, smi_line, need=()):
+    """Print kernel_check rows of recorded launches and how many launch
+    shapes each kernel was held at; fail on the first row that does not
+    pass, and when a kernel of `need` was held at no shape."""
+    for r in rows:
+        say(f"{label} ({smi_line}): {kc.describe(r)}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{label}: {kc.describe(bad[0])}")
+    count = collections.Counter(r["kernel"] for r in rows)
+    missing = [k for k in need if not count[k]]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} held at no shape "
+                             f"against their plain versions")
+    say(f"{label} ({smi_line}): launch shapes held against the plain "
+        f"versions: {dict(count)}")
 
 
 def write_config(name, pct_np, pcs_np, params):
@@ -1316,7 +287,7 @@ def timed_build(torch, points, bounds, builder="auto", dtype=None):
     return field, seconds, peak, estimate
 
 
-def lut_phase(torch, dev, pair, counted, launches, reset, nn_shapes):
+def lut_phase(torch, dev, pair, rec):
     """Phase 7: LUT search-only on the smoke pair, as the JAX bench's
     bunny_lut_res0.002 line runs it (lut_resolution 0.002, bfloat16 field,
     multi-start off), cold then warm through GoICP(..., bound_backend="lut")
@@ -1336,18 +307,18 @@ def lut_phase(torch, dev, pair, counted, launches, reset, nn_shapes):
         raise AssertionError(f"LUT field built by {field.builder}, not edt")
     del field, norm
     for run in ("cold", "warm"):
-        reset()
+        snap = snapshot()
         t_run = time.time()
-        model = GoICP(pair[0], pair[1], lut_resolution=LUT_RESOLUTION,
-                      mse_threshold=1e-3,
-                      engine=EngineConfig(icp_multi_start=False, seed=0),
-                      bound_backend="lut", device=dev)
-        R, t = model.run()
+        with (rec.record("7 LUT search-only") if run == "cold"
+              else contextlib.nullcontext()):
+            model = GoICP(pair[0], pair[1], lut_resolution=LUT_RESOLUTION,
+                          mse_threshold=1e-3,
+                          engine=EngineConfig(icp_multi_start=False, seed=0),
+                          bound_backend="lut", device=dev)
+            R, t = model.run()
         torch.cuda.synchronize()
         wall = time.time() - t_run
-        launched = {fn.__name__: fn.launches for fn in counted}
-        for key, n in launched.items():
-            launches[key] += n
+        launched, nn_shapes = since(snap)
         r_err, t_err = pose_errors(R, t, pair)
         s = model.stats
         say(f"LUT search-only {run}: wall {wall!r} s (GoICP() + run()), run "
@@ -1358,7 +329,7 @@ def lut_phase(torch, dev, pair, counted, launches, reset, nn_shapes):
             f"{s.translation_nodes}, rotation_children {s.rotation_children}, "
             f"outer_steps {s.outer_steps}, inner_loop_steps "
             f"{s.inner_loop_steps}, icp_runs {s.icp_runs}, launches "
-            f"{launched}, NN launches by shape {nn_shapes()}")
+            f"{launched}, NN launches by shape {nn_shapes}")
         check_result(f"LUT search-only {run}", model, R, t, r_err, t_err)
         if model.backend.field.builder != "edt":
             raise AssertionError("LUT search-only: field not built by edt")
@@ -1386,7 +357,7 @@ def bunny_field_phase(torch, dev):
     from fgoicp_tpu_torch.ops import cuda_minplus, cuda_nn
 
     rng = np.random.default_rng(8)
-    pts = surface_cloud(rng, 18000)
+    pts = workloads.curve(rng, rng.uniform(0.0, 4.5, size=18000))
     # Ranges half a cell short of (dims - 1) * res: grid_dims' ceil then
     # lands on the dims whatever the float rounding of the ranges.
     box = (np.asarray(BUNNY_FIELD_DIMS) - 1.5) * LUT_RESOLUTION
@@ -1442,8 +413,7 @@ def serving_checks(label, results, truth, span, t_limit):
     return r_max, t_max
 
 
-def serving_phase(torch, dev, data, counted, launches, reset, nn_shapes,
-                  smi_line):
+def serving_phase(torch, dev, data, rec, smi_line):
     """Phase 9: the serving mode through RegistrationService on cuda.
 
     9a, throughput (stands in for bench.py's serving_throughput_32pairs):
@@ -1470,19 +440,19 @@ def serving_phase(torch, dev, data, counted, launches, reset, nn_shapes,
         """Build the service, then register cold and warm; returns it."""
         srv = None
         for run in ("cold", "warm"):
-            reset()
+            snap = snapshot()
             t_run = time.time()
-            if srv is None:
-                srv = make()
-                torch.cuda.synchronize()
-                setup = time.time() - t_run
-            before = dict(vars(srv.stats))
-            results = srv.register(batch)
+            with (rec.record(label) if run == "cold"
+                  else contextlib.nullcontext()):
+                if srv is None:
+                    srv = make()
+                    torch.cuda.synchronize()
+                    setup = time.time() - t_run
+                before = dict(vars(srv.stats))
+                results = srv.register(batch)
             torch.cuda.synchronize()
             wall = time.time() - t_run
-            launched = {fn.__name__: fn.launches for fn in counted}
-            for key, n in launched.items():
-                launches[key] += n
+            launched, nn_shapes = since(snap)
             st = {k: v - before[k] for k, v in vars(srv.stats).items()}
             b = len(batch)
             r_max, t_max = serving_checks(f"{label} {run}", results, truth,
@@ -1495,7 +465,7 @@ def serving_phase(torch, dev, data, counted, launches, reset, nn_shapes,
                 f"certified_by_seeding {st['certified_by_seeding']}, "
                 f"fallbacks {st['fallbacks']}, max R err {r_max!r}, max t "
                 f"err/span {t_max!r}, launches {launched}, NN launches by "
-                f"shape {nn_shapes()}")
+                f"shape {nn_shapes}")
             missing = [k for k in ("nn_argmin", "nn_min") if launched[k] <= 0]
             if st["fallbacks"] and launched["fused_bounds_lanes"] <= 0:
                 missing.append("fused_bounds_lanes")
@@ -1565,8 +535,7 @@ def compare_modes(label, device_runs, host_runs, smi_line):
         f"best_sse {dw['model'].best_sse!r} vs {hw['model'].best_sse!r}")
 
 
-def checkpoint_phase(torch, dev, pair, counted, launches, reset, ref_sse,
-                     host_steps):
+def checkpoint_phase(torch, dev, pair, ref_sse, host_steps):
     """Phase 10c: checkpoints on the card.  A search-only run of the smoke
     pair with checkpoint_every = 1 into a file under build/ is killed right
     after its second checkpoint (device: the second one-step chunk; host:
@@ -1589,7 +558,7 @@ def checkpoint_phase(torch, dev, pair, counted, launches, reset, ref_sse,
                              checkpoint_path=str(path), checkpoint_every=1,
                              **engine))
 
-        reset()
+        snap = snapshot()
         t_run = time.time()
         model = make()
         name = "_save_device_checkpoint" if kind == "device" \
@@ -1618,9 +587,7 @@ def checkpoint_phase(torch, dev, pair, counted, launches, reset, ref_sse,
         R, t = resumed.run()
         torch.cuda.synchronize()
         wall = time.time() - t_run
-        launched = {fn.__name__: fn.launches for fn in counted}
-        for key, n in launched.items():
-            launches[key] += n
+        launched = since(snap)[0]
         r_err, t_err = pose_errors(R, t, pair)
         s = resumed.stats
         say(f"checkpoint {kind} ({ckpt.peek_kind(str(path))}): killed after "
@@ -1655,7 +622,7 @@ OVERFLOW_ENGINE = dict(rotation_batch=2, so3_capacity=16,
                        icp_refine_best=False, icp_width=4, icp_max_iter=10)
 
 
-def overflow_phase(torch, dev, pair, counted, launches, reset, ref_sse):
+def overflow_phase(torch, dev, pair, ref_sse):
     """Phase 10d: so3_capacity = 8 * rotation_batch (OVERFLOW_ENGINE).  The
     frontier spills, the device gap must end open, the host loop must
     re-certify (shown by its seed_heap call after the device search), the
@@ -1672,7 +639,7 @@ def overflow_phase(torch, dev, pair, counted, launches, reset, ref_sse):
                      engine=EngineConfig(icp_multi_start=False, seed=0,
                                          **dict(OVERFLOW_ENGINE, **engine)))
 
-    reset()
+    snap = snapshot()
     t_run = time.time()
     model = make(outer_mode="device")
     device_gaps, device_steps = [], []
@@ -1687,9 +654,7 @@ def overflow_phase(torch, dev, pair, counted, launches, reset, ref_sse):
     R, t = model.run()
     torch.cuda.synchronize()
     wall = time.time() - t_run
-    launched = {fn.__name__: fn.launches for fn in counted}
-    for key, n in launched.items():
-        launches[key] += n
+    launched = since(snap)[0]
     r_err, t_err = pose_errors(R, t, pair)
     s = model.stats
     say(f"overflow ({OVERFLOW_ENGINE}): device gap {device_gaps!r} after "
@@ -1897,22 +862,15 @@ def multihost_worker(rank, port, out_path) -> int:
         print("multihost worker: no CUDA device", file=sys.stderr)
         return 1
     import torch.distributed
-    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_nn
     from fgoicp_tpu_torch.parallel import (ChaosCommunicator, MultiHostGoICP,
                                            initialize)
-    counted = (cuda_nn.nn_argmin, cuda_nn.nn_min,
-               cuda_bounds.fused_bounds_lanes,
-               cuda_bounds.fused_bounds_lanes_trimmed,
-               cuda_bounds.fused_bounds)
-    pair = known_transform_pair(
-        surface_cloud(np.random.default_rng(0), 24000), 18000, 3000)
+    pair = workloads.smoke_pair()
     dev = torch.device("cuda")
     comm = ChaosCommunicator(initialize(f"localhost:{port}", 2, rank),
                              delay_s=0.0)
     runs = []
     for _ in range(2):
-        for fn in counted:
-            fn.launches = 0
+        snap = snapshot()
         seen = len(comm.digests)
         torch.cuda.synchronize()
         t_run, cpu = time.time(), time.process_time()
@@ -1922,9 +880,8 @@ def multihost_worker(rank, port, out_path) -> int:
         R, t = model.run()
         torch.cuda.synchronize()
         wall, cpu = time.time() - t_run, time.process_time() - cpu
-        launched = {fn.__name__: fn.launches for fn in counted}
         runs.append(dict(rank_summary(model, R, t, wall, pair, cpu),
-                         launched=launched,
+                         launched=since(snap)[0],
                          digests=[d.hex() for d in comm.digests[seen:]]))
     torch.distributed.destroy_process_group()
     pathlib.Path(out_path).write_text(json.dumps(runs))
@@ -1981,8 +938,7 @@ MULTIHOST_B = dict(outer_mode="device", multihost_sync_every=4,
                    multihost_steal_max=4)
 
 
-def multihost_phase(torch, dev, pair, counted, launches, reset, many,
-                    smi_line):
+def multihost_phase(torch, dev, pair, many, smi_line):
     """Phase 11: the multi-host outer BnB (fgoicp_tpu_torch/parallel) on
     the many-step engine of phase 10d, against its single-host runs
     (`many`).  11a: 4 thread hosts, host mode; 11b: 2 thread hosts, device
@@ -1996,12 +952,10 @@ def multihost_phase(torch, dev, pair, counted, launches, reset, many,
 
     def threads_run(label, streams, kw, mode):
         n = len(streams)
-        reset()
+        snap = snapshot()
         comms, hosts, wall, cpu = thread_hosts(
             torch, dev, pair, multihost_engine(**kw), streams)
-        launched = {fn.__name__: fn.launches for fn in counted}
-        for key, k in launched.items():
-            launches[key] += k
+        launched = since(snap)[0]
         ranks = [rank_summary(m, R, t, w, pair, c)
                  for m, R, t, w, c in hosts]
         say(f"{label}: process CPU {cpu!r} s over the phase wall {wall!r} s")
@@ -2045,8 +999,6 @@ def multihost_phase(torch, dev, pair, counted, launches, reset, many,
         ranks = [runs[i] for runs in by_rank]
         launched = {k: sum(h["launched"][k] for h in ranks)
                     for k in ranks[0]["launched"]}
-        for key, k in launched.items():
-            launches[key] += k
         multihost_check(f"11c {run} (2 gloo processes, {MULTIHOST_A})",
                         ranks, many["host"], max(h["wall"] for h in ranks),
                         smi_line, launched)
@@ -2100,241 +1052,15 @@ def mesh_run_summary(label, kind, model, R, t, wall, truth, launched):
                 mesh=model.mesh.counters(), launched=launched, digest=digest)
 
 
-# Kernels 1-4 and 6, whose launches on one rank's shards phases 12 and 13
-# hold against their plain versions (kernel 5 runs only on cubes-only
-# meshes and neither phase runs it; kernel 6 only for a LUT engine, 13c).
-SHARD_KERNELS = ("nn_argmin", "nn_min", "fused_bounds_lanes", "fused_bounds",
-                 "minplus_1d")
-# Phase 15 holds every kernel its tools launch, the trimmed lanes too.
-TOOL_KERNELS = SHARD_KERNELS + ("fused_bounds_lanes_trimmed",)
-# The most distinct launch shapes a run keeps per kernel (the first seen).
-SHARD_SHAPES = 12
-
-
-def _shape_key(a):
-    """What makes a kernel argument's launch shape: a tensor's shape and
-    dtype, a bucket set's proxy count, an int's value (n_drop)."""
-    if hasattr(a, "shape"):
-        return tuple(a.shape), str(a.dtype)
-    if hasattr(a, "points"):
-        return "buckets", tuple(a.points.shape)
-    return a if isinstance(a, (int, type(None))) else type(a).__name__
-
-
-class ShardLaunches:
-    """While on (`with`), the wrappers of `kernels` keep a copy of the
-    arguments of their first launch at every distinct shape, as the path
-    gives them; `check` then holds each against its plain version on the
-    card.  The wrappers are swapped for forwarding objects, so the ops and
-    the wrappers' own `.launches` counting see the same functions.  With
-    plain_reps 0 the plain version runs once, its time that call's."""
-
-    def __init__(self, torch, kernels=SHARD_KERNELS, plain_reps=2):
-        from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
-        self.torch = torch
-        self.plain_reps = plain_reps
-        self.mods = {name: cuda_nn if name.startswith("nn_") else
-                     cuda_minplus if name == "minplus_1d" else cuda_bounds
-                     for name in kernels}
-        self.calls = {}   # (label, name, shapes) -> (fn, args, kwargs)
-        self.shapes = {}  # (label, name) -> distinct launch shapes seen
-        self.label = None
-
-    def record(self, label):
-        self.label = label
-        return self
-
-    def __enter__(self):
-        outer = self
-
-        class Forward:
-            def __init__(self, fn):
-                object.__setattr__(self, "fn", fn)
-
-            def __call__(self, *args, **kw):
-                key = (outer.label, self.fn.__name__,
-                       tuple(_shape_key(a) for a in args),
-                       tuple(sorted((k, _shape_key(v))
-                                    for k, v in kw.items())))
-                seen = outer.shapes.setdefault(key[:2], set())
-                seen.add(key[2:])
-                if key not in outer.calls and len(seen) <= SHARD_SHAPES:
-                    keep = lambda a: a.clone() if hasattr(a, "clone") else a
-                    outer.calls[key] = (self.fn, [keep(a) for a in args],
-                                        {k: keep(v) for k, v in kw.items()})
-                return self.fn(*args, **kw)
-
-            def __getattr__(self, name):
-                return getattr(object.__getattribute__(self, "fn"), name)
-
-            def __setattr__(self, name, value):
-                setattr(object.__getattribute__(self, "fn"), name, value)
-
-        for name, mod in self.mods.items():
-            setattr(mod, name, Forward(getattr(mod, name)))
-        return self
-
-    def __exit__(self, *exc):
-        for name, mod in self.mods.items():
-            setattr(mod, name, getattr(mod, name).fn)
-
-    def _plain(self, fn, args, kw):
-        """(plain version's call, shape text, flops, bytes, counted launch
-        or None, flops besides the search) of a launch.  For the pruned
-        kernels the counted launch runs the kernel with its counters
-        (`pair_counts`); flops are then the full scan's, every (lane,
-        point, proxy) pair or (line, i, j) triple, plus the trimmed
-        kernel's bisection (27 compare passes over both term arrays)."""
-        import inspect
-        torch = self.torch
-        from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
-        a = inspect.signature(fn).bind(*args, **kw)
-        a.apply_defaults()
-        a = a.arguments
-        name = fn.__name__
-        if name in ("nn_argmin", "nn_min"):
-            q, p = a["queries"], a["points"]
-            m, t = q.shape[0], p.shape[0]
-            plain = getattr(cuda_nn, name + "_plain")
-            return (lambda: plain(q, p), f"{m}x{t}", 8.0 * m * t,
-                    12.0 * (m + t) + 4 * m * (2 if name == "nn_argmin"
-                                              else 1), None, 0.0)
-        if name == "minplus_1d":
-            g, res = a["g"], a["res"]
-            lines, n = g.shape
-            return (lambda: cuda_minplus.minplus_1d_plain(g, res),
-                    f"{lines}x{n}", 2.0 * lines * n * n, 8.0 * lines * n,
-                    lambda c: cuda_minplus._launch(g, res, c), 0.0)
-        base = a["base"]
-        ns = base.shape[1]
-        proxies, buckets = cuda_bounds._search_args(
-            name, a["proxies"], a["point_order"], ns)
-        if buckets is None:
-            buckets = cuda_bounds.proxy_buckets(proxies)
-        slack = float(np.float32(float(a["slack"])))
-        gam_lb = a["gam_ub"] if a["gam_lb"] is None else a["gam_lb"]
-        w = (torch.ones(ns, dtype=torch.float32, device=base.device)
-             if a["point_weights"] is None else a["point_weights"])
-        n_prox = proxies.shape[0]
-        order = a["point_order"]
-        extra = 0.0
-        if name == "fused_bounds_lanes_trimmed":
-            lanes, n_drop = a["gids"].shape[0], a["n_drop"]
-            plain = lambda: cuda_bounds.fused_bounds_lanes_trimmed_plain(
-                base, a["gids"], a["t_lanes"], proxies, a["gam_ub"], gam_lb,
-                a["gam_t_lanes"], slack, w, n_drop)
-            counted = lambda c: cuda_bounds._launch_lanes_trimmed(
-                base, a["gids"], a["t_lanes"], a["gam_ub"], gam_lb,
-                a["gam_t_lanes"], w, slack, n_drop, buckets, order, c)
-            shape = (f"G{base.shape[0]} L{lanes} ns{ns} P{n_prox} "
-                     f"n_drop{n_drop}")
-            extra = 2.0 * 27 * lanes * ns
-        elif name == "fused_bounds":
-            tc = a["t_centers"]
-            lanes = tc.shape[0] * tc.shape[1]
-            plain = lambda: cuda_bounds.fused_bounds_plain(
-                base, tc, proxies, a["gam_ub"], gam_lb, a["gam_t"], slack, w)
-            counted = lambda c: cuda_bounds._launch_grid(
-                base, tc, a["gam_ub"], gam_lb, a["gam_t"], w, slack,
-                buckets, order, c)
-            shape = f"G{base.shape[0]} B{tc.shape[1]} ns{ns} P{n_prox}"
-        else:
-            lanes = a["gids"].shape[0]
-            plain = lambda: cuda_bounds.fused_bounds_lanes_plain(
-                base, a["gids"], a["t_lanes"], proxies, a["gam_ub"], gam_lb,
-                a["gam_t_lanes"], slack, w)
-            counted = lambda c: cuda_bounds._launch_lanes(
-                base, a["gids"], a["t_lanes"], a["gam_ub"], gam_lb,
-                a["gam_t_lanes"], w, slack, buckets, order, c)
-            shape = f"G{base.shape[0]} L{lanes} ns{ns} P{n_prox}"
-        return (plain, shape, PAIR_FLOPS * lanes * ns * n_prox + extra,
-                4.0 * (base.numel() + 2 * base.shape[0] * ns + ns
-                       + 3 * n_prox + 5 * lanes + 2 * lanes), counted, extra)
-
-    def check(self):
-        """Every recorded launch against its plain version (NN and
-        minplus_1d bit for bit; bounds rtol 2e-4 / atol 2e-5 and lb <= ub),
-        each timed on the card; returns one dict per launch shape, with the
-        number of distinct shapes its run launched the kernel at (`of`).
-        For the pruned kernels `bound_ms` is the bound of the work the
-        kernel's counters report (8 flops a pair and 17 a box test, 2 a
-        min-plus triple), `full_scan_bound_ms` the full scan's."""
-        import inspect
-        torch = self.torch
-        out = []
-        for (label, name, _, _), (fn, args, kw) in self.calls.items():
-            plain, shape, flops, nbytes, counted, extra = self._plain(
-                fn, args, kw)
-            kernel = lambda: fn(*args, **kw)
-            if self.plain_reps:
-                want = plain()
-                plain_ms = cuda_ms(torch, plain, self.plain_reps)
-            else:
-                want, plain_ms = timed_once(torch, plain)
-            if name in ("nn_argmin", "nn_min"):
-                err = nn_equal(torch, f"{label} {name} [{shape}]", kernel(),
-                               want)
-            elif name == "minplus_1d":
-                got = kernel()
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"{label} minplus_1d [{shape}]: "
-                        f"{int((got != want).sum())} values differ from the "
-                        f"plain version")
-                err = 0.0
-            else:
-                err = check_bounds(torch, f"{label} {name} [{shape}]",
-                                   kernel(), want)
-            full_bound_ms, bound_by = bound(flops, nbytes)
-            work = None
-            if counted is not None:
-                work = pair_counts(torch, counted)
-                done = (2.0 * work[0] if name == "minplus_1d" else
-                        PAIR_FLOPS * work[0] + BOX_FLOPS * work[1] + extra)
-                bound_ms, bound_by = bound(done, nbytes)
-            else:
-                bound_ms = full_bound_ms
-            # The library yardstick of phase 2 (torch.cdist, then the
-            # min), where its [M, T] matrix has fewer than 2^31 elements.
-            library_ms = None
-            if name in ("nn_argmin", "nn_min"):
-                bound_args = inspect.signature(fn).bind(*args, **kw)
-                q, p = (bound_args.arguments[k] for k in ("queries",
-                                                          "points"))
-                reduce = (lambda d: torch.min(d, dim=1)) \
-                    if name == "nn_argmin" \
-                    else (lambda d: torch.amin(d, dim=1))
-                try:
-                    if q.shape[0] * p.shape[0] >= 2 ** 31:
-                        raise RuntimeError("2^31 elements or more")
-                    library_ms = cuda_ms(torch, lambda: reduce(torch.cdist(
-                        q, p, compute_mode="donot_use_mm_for_euclid_dist")),
-                        1)
-                except RuntimeError as exc:
-                    say(f"{label} {name} [{shape}]: library refused ({exc})")
-            out.append(dict(label=label, name=name, shape=shape,
-                            library_ms=library_ms,
-                            of=len(self.shapes[(label, name)]),
-                            max_abs_err=err, ms=cuda_ms(torch, kernel, 10),
-                            plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            full_scan_bound_ms=full_bound_ms, work=work))
-        self.calls.clear()
-        self.shapes.clear()
-        return out
-
-
 def mesh_worker(label, nc, np_, rank, port, out_path) -> int:
     """Phase 12's worker (`chip_smoke.py --mesh-worker LABEL NC NP RANK PORT
     OUT`): one rank of an nc x np_ mesh on this card, joined by the user
     entry points themselves (register(Config) with engine.mesh_cubes /
     mesh_points, or make_mesh for serving) over env://, as torchrun starts
     ranks.  Runs the sub-phase cold, then warm, in this process and writes
-    its summaries to OUT.  Rank 0 keeps its cold runs' kernel launches
-    (`ShardLaunches`) and, once the mesh is down, holds each launch shape
-    against the kernel's plain version."""
-    import contextlib
+    its summaries to OUT.  Rank 0 records its cold runs' kernel launches
+    (kernel_check's `Recorder`) and, once the mesh is down, holds each
+    launch shape against the kernel's plain version."""
     import os
     import torch
     if not torch.cuda.is_available():
@@ -2346,18 +1072,13 @@ def mesh_worker(label, nc, np_, rank, port, out_path) -> int:
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     import torch.distributed
     from fgoicp_tpu_torch import Config, load_cloud, register
-    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_nn
-    counted = (cuda_nn.nn_argmin, cuda_nn.nn_min,
-               cuda_bounds.fused_bounds_lanes,
-               cuda_bounds.fused_bounds_lanes_trimmed,
-               cuda_bounds.fused_bounds)
-    shard_launches = ShardLaunches(torch) if rank == 0 else None
+    rec = kc.Recorder() if rank == 0 else None
 
     def recording(run, name):
         """Rank 0's cold runs keep their launches' arguments."""
-        if shard_launches is None or run != "cold":
+        if rec is None or run != "cold":
             return contextlib.nullcontext()
-        return shard_launches.record(f"{label} {name}")
+        return rec.record(f"{label} {name}")
 
     def drive(name, kind, truth, **engine):
         """register() cold, then warm: [(model, summary)] of both runs."""
@@ -2368,34 +1089,30 @@ def mesh_worker(label, nc, np_, rank, port, out_path) -> int:
         pct, pcs = load_cloud(cfg.io.target), load_cloud(cfg.io.source)
         out = []
         for run in ("cold", "warm"):
-            for fn in counted:
-                fn.launches = 0
+            snap = snapshot()
             torch.cuda.synchronize()
             t_run = time.time()
             with recording(run, kind):
                 model, R, t = register(cfg, pct, pcs, device="cuda")
             torch.cuda.synchronize()
             wall = time.time() - t_run
-            launched = {fn.__name__: fn.launches for fn in counted}
             out.append((model, mesh_run_summary(
                 f"{label} {kind} {run}", kind, model, R, t, wall, truth,
-                launched)))
+                since(snap)[0])))
         return out
 
-    pair = known_transform_pair(
-        surface_cloud(np.random.default_rng(0), 24000), 18000, 3000)
+    pair = workloads.smoke_pair()
     runs = []
     if label == "12d":
         import hashlib
         from fgoicp_tpu_torch.models.serving import RegistrationService
         from fgoicp_tpu_torch.parallel import make_mesh
-        data = serving_data()
+        data = workloads.serving_data()
         mesh = make_mesh(nc, np_, device="cuda")
         srv = RegistrationService(data["pct"], mse_threshold=1e-3,
                                   mesh=mesh, device="cuda")
         for run in ("cold", "warm"):
-            for fn in counted:
-                fn.launches = 0
+            snap = snapshot()
             mesh.reset_counters()
             fallbacks = srv.stats.fallbacks
             torch.cuda.synchronize()
@@ -2414,7 +1131,7 @@ def mesh_worker(label, nc, np_, rank, port, out_path) -> int:
                 R=arrays[0].tolist(), t=arrays[1].tolist(),
                 fallbacks=srv.stats.fallbacks - fallbacks,
                 mesh=mesh.counters(),
-                launched={fn.__name__: fn.launches for fn in counted},
+                launched=since(snap)[0],
                 digest=hashlib.sha256(b"".join(a.tobytes() for a in arrays))
                 .hexdigest()))
     elif label == "12b":
@@ -2422,14 +1139,14 @@ def mesh_worker(label, nc, np_, rank, port, out_path) -> int:
         runs += [summary for _, summary in drive(
             "smoke", "grouped", pair, frontier_mode="grouped")]
         runs += [summary for _, summary in drive(
-            "trimmed", "trimmed", partial_overlap_pair())]
+            "trimmed", "trimmed", workloads.trimmed_pair())]
     else:
         runs += [summary for _, summary in drive(
             "smoke", "device" if label == "12c" else "smoke", pair,
             **(dict(outer_mode="device") if label == "12c" else {}))]
     torch.distributed.destroy_process_group()
-    if shard_launches is not None:
-        runs[0]["shard_kernels"] = shard_launches.check()
+    if rec is not None:
+        runs[0]["shard_kernels"] = rec.check()
     pathlib.Path(out_path).write_text(json.dumps(runs))
     return 0
 
@@ -2483,20 +1200,7 @@ def mesh_processes(label, nc, np_, hosts=1):
     return [json.loads(path.read_text()) for path in outs], wall
 
 
-def shard_work(k):
-    """A pruned kernel's work from its counters, beside the full scan's."""
-    if k.get("work") is None:
-        return ""
-    what = ("(line, i, j) triples evaluated, (warp, chunk) pairs staged"
-            if k["name"] == "minplus_1d" else
-            "(point, proxy) pairs evaluated, (point, box) tests")
-    return (f"; counters: {what} {k['work']}; bound of that work "
-            f"{k['bound_ms']!r} ms, of the full scan "
-            f"{k['full_scan_bound_ms']!r} ms")
-
-
-def mesh_phase(torch, launches, refs, refs_wall, served, serving,
-               smi_line):
+def mesh_phase(refs, refs_wall, served, serving, smi_line):
     """Phase 12: the device mesh (fgoicp_tpu_torch/parallel/sharding.py,
     bnb.py) as gloo processes sharing this card, one run per sub-phase:
     12a (2, 1) search-only on the smoke pair; 12b (1, 2) search-only, the
@@ -2507,26 +1211,19 @@ def mesh_phase(torch, launches, refs, refs_wall, served, serving,
     single-device phase's (`refs`: phase 4, 6, 5 and 10a's warm runs, whose
     register() walls are `refs_wall`; `served`: 9a's results) and the
     path's kernels launched.  Rank 0 of each sub-phase holds every shape
-    at which its cold runs launched kernels 1-4 against the plain versions;
-    each of the four must have been held at some shape."""
+    at which its cold runs launched a kernel against the plain versions;
+    nn_argmin, nn_min, fused_bounds_lanes and fused_bounds must each be held
+    at some shape.  Returns the held rows."""
     import types
     need = {"smoke": ("nn_argmin", "fused_bounds_lanes"),
             "grouped": ("nn_argmin", "fused_bounds"),
             "trimmed": ("nn_argmin", "nn_min"),
             "device": ("nn_argmin", "nn_min", "fused_bounds_lanes"),
             "serving": ("nn_argmin", "nn_min")}
-    held = {name: 0 for name in SHARD_KERNELS if name != "minplus_1d"}
+    rows = []
     for label, nc, np_ in MESH_PHASES:
         by_rank, wall = mesh_processes(label, nc, np_)
-        for k in by_rank[0][0].get("shard_kernels", []):
-            held[k["name"]] += 1
-            say(f"{k['label']} rank 0 shard launch {k['name']} "
-                f"[{k['shape']}] (of {k['of']} shapes) ({smi_line}): "
-                f"max_abs_err "
-                f"{k['max_abs_err']!r} against its plain version, kernel "
-                f"{k['ms']!r} ms, plain {k['plain_ms']!r} ms, bound "
-                f"{k['bound_ms']!r} ms ({k['bound_by']}), library "
-                f"{k['library_ms']!r} ms{shard_work(k)}")
+        rows += by_rank[0][0].get("shard_kernels", [])
         say(f"{label} ({smi_line}): {nc} x {np_} mesh, {nc * np_} gloo "
             f"processes on one card, wall {wall!r} s from start to exit")
         for i in range(len(by_rank[0])):
@@ -2534,8 +1231,6 @@ def mesh_phase(torch, launches, refs, refs_wall, served, serving,
             name, kind = ranks[0]["label"], ranks[0]["kind"]
             launched = {k: sum(h["launched"][k] for h in ranks)
                         for k in ranks[0]["launched"]}
-            for key, k in launched.items():
-                launches[key] += k
             for r, h in enumerate(ranks):
                 nodes = ("" if kind == "serving" else
                          f"translation_nodes {h['translation_nodes']}, "
@@ -2597,13 +1292,9 @@ def mesh_phase(torch, launches, refs, refs_wall, served, serving,
                 f"{[h['wall'] for h in ranks]!r} s against the single "
                 f"device's warm {refs_wall[kind]!r} s, kernel launches "
                 f"summed over ranks {launched}")
-    missing = [name for name, n in held.items() if not n]
-    if missing:
-        raise AssertionError(f"phase 12: kernels {missing} never held "
-                             f"against their plain versions at a shard "
-                             f"shape")
-    say(f"phase 12 ({smi_line}): launch shapes held against the plain "
-        f"versions on rank 0 of each sub-phase: {held}")
+    held("phase 12 rank 0", rows, smi_line, need=(
+        "nn_argmin", "nn_min", "fused_bounds_lanes", "fused_bounds"))
+    return rows
 
 
 # Phase 13's sub-phases: (label, mesh_cubes, mesh_points, protocol settings,
@@ -2640,42 +1331,34 @@ def hostmesh_worker(label, nc, np_, rank, port, out_path) -> int:
     meshes, then one host group a mesh position).  Runs the sub-phase's
     MultiHostGoICP cold, then warm, over ChaosCommunicator(delay_s=0) and
     writes each run's rank_summary, launches, gather digests, mesh counters
-    and state digest to OUT.  Rank 0 keeps its cold run's launches
-    (`ShardLaunches`) and holds each shape against its plain version once
-    the world is down."""
-    import contextlib
+    and state digest to OUT.  Rank 0 records its cold run's launches
+    (kernel_check's `Recorder`) and holds each shape against its plain
+    version once the world is down."""
     import torch
     if not torch.cuda.is_available():
         print("host-mesh worker: no CUDA device", file=sys.stderr)
         return 1
     import torch.distributed
-    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
     from fgoicp_tpu_torch.parallel import ChaosCommunicator, initialize
     from fgoicp_tpu_torch.parallel.distributed import (MultiHostGoICP,
                                                        make_host_mesh)
     (kw, extra), = [(k, e) for lab, _, _, k, e in HOST_MESH_PHASES
                     if lab == label]
-    counted = (cuda_nn.nn_argmin, cuda_nn.nn_min,
-               cuda_bounds.fused_bounds_lanes,
-               cuda_bounds.fused_bounds_lanes_trimmed,
-               cuda_bounds.fused_bounds, cuda_minplus.minplus_1d)
-    pair = known_transform_pair(
-        surface_cloud(np.random.default_rng(0), 24000), 18000, 3000)
+    pair = workloads.smoke_pair()
     initialize(f"localhost:{port}", HOST_MESH_HOSTS * nc * np_, rank,
                timeout=HOSTS_JOIN_S)
     inner, mesh = make_host_mesh(HOST_MESH_HOSTS, nc, np_, device="cuda",
                                  timeout=HOSTS_JOIN_S)
     comm = ChaosCommunicator(inner, delay_s=0.0)
-    shard_launches = ShardLaunches(torch) if rank == 0 else None
+    rec = kc.Recorder() if rank == 0 else None
     kind = "lut" if extra else kw["outer_mode"]
     runs = []
     for run in ("cold", "warm"):
-        for fn in counted:
-            fn.launches = 0
+        snap = snapshot()
         mesh.reset_counters()
         seen = len(comm.digests)
-        recording = (shard_launches.record(f"{label} {kind}")
-                     if shard_launches is not None and run == "cold"
+        recording = (rec.record(f"{label} {kind}")
+                     if rec is not None and run == "cold"
                      else contextlib.nullcontext())
         torch.cuda.synchronize()
         t_run, cpu = time.time(), time.process_time()
@@ -2689,17 +1372,17 @@ def hostmesh_worker(label, nc, np_, rank, port, out_path) -> int:
         runs.append(dict(
             rank_summary(model, R, t, wall, pair, cpu), label=label,
             run=run, kind=kind, host=mesh.host, position=mesh.rank,
-            launched={fn.__name__: fn.launches for fn in counted},
+            launched=since(snap)[0],
             digests=[d.hex() for d in comm.digests[seen:]],
             mesh=mesh.counters(), state=state_digest(model, R, t)))
     torch.distributed.destroy_process_group()
-    if shard_launches is not None:
-        runs[0]["shard_kernels"] = shard_launches.check()
+    if rec is not None:
+        runs[0]["shard_kernels"] = rec.check()
     pathlib.Path(out_path).write_text(json.dumps(runs))
     return 0
 
 
-def hostmesh_phase(launches, many, smi_line):
+def hostmesh_phase(many, smi_line):
     """Phase 13: hosts on meshes, HOST_MESH_HOSTS hosts of nc x np_ gloo
     processes on this card, each sub-phase cold then warm.  Gate on every
     rank: the certificate and check_result's pose gate on the certified
@@ -2709,19 +1392,13 @@ def hostmesh_phase(launches, many, smi_line):
     state digests, donated == stolen counted at each host's mesh position
     0, the path's kernels launched (13c: minplus_1d three times a rank and
     no proxy lane kernel).  Rank 0's cold-run launch shapes are held against
-    the plain versions; minplus_1d must be held in 13c."""
+    the plain versions; minplus_1d (13c), fused_bounds_lanes and nn_argmin
+    must each be held.  Returns the held rows."""
     import types
-    held = {}
+    rows = []
     for label, nc, np_, kw, extra in HOST_MESH_PHASES:
         by_rank, wall = mesh_processes(label, nc, np_, hosts=HOST_MESH_HOSTS)
-        for k in by_rank[0][0].get("shard_kernels", []):
-            held[k["name"]] = held.get(k["name"], 0) + 1
-            say(f"{k['label']} rank 0 shard launch {k['name']} "
-                f"[{k['shape']}] (of {k['of']} shapes) ({smi_line}): "
-                f"max_abs_err {k['max_abs_err']!r} against its plain "
-                f"version, kernel {k['ms']!r} ms, plain {k['plain_ms']!r} "
-                f"ms, bound {k['bound_ms']!r} ms ({k['bound_by']}), library "
-                f"{k['library_ms']!r} ms{shard_work(k)}")
+        rows += by_rank[0][0].get("shard_kernels", [])
         n = HOST_MESH_HOSTS * nc * np_
         say(f"{label} ({smi_line}): {HOST_MESH_HOSTS} hosts x {nc} x {np_} "
             f"mesh, {n} gloo processes on one card, {kw}, {extra or ''} "
@@ -2733,8 +1410,6 @@ def hostmesh_phase(launches, many, smi_line):
             ref = many["device" if kind == "device" else "host"]
             launched = {k: sum(h["launched"][k] for h in ranks)
                         for k in ranks[0]["launched"]}
-            for key, k in launched.items():
-                launches[key] += k
             for r, h in enumerate(ranks):
                 say(f"{name} rank {r} (host {h['host']}, mesh position "
                     f"{h['position']}) ({smi_line}): wall {h['wall']!r} s, "
@@ -2796,13 +1471,9 @@ def hostmesh_phase(launches, many, smi_line):
                 f"over hosts {sum(h['translation_nodes'] for h in firsts)} "
                 f"against {ref['translation_nodes']}, kernel launches summed "
                 f"over ranks {launched}")
-    if not held.get("minplus_1d") or not held.get("fused_bounds_lanes") \
-            or not held.get("nn_argmin"):
-        raise AssertionError(f"phase 13: kernels held at shard shapes "
-                             f"{held}; minplus_1d, fused_bounds_lanes and "
-                             f"nn_argmin must each be held")
-    say(f"phase 13 ({smi_line}): launch shapes held against the plain "
-        f"versions on rank 0 of each sub-phase: {held}")
+    held("phase 13 rank 0", rows, smi_line, need=(
+        "minplus_1d", "fused_bounds_lanes", "nn_argmin"))
+    return rows
 
 
 def merge_phase(drive, require, cfg, pct_in, pcs_in, pair, sort_runs,
@@ -2914,39 +1585,13 @@ def cli_phase(smi_line):
         f"span {ranges}; --debug-nans: result equal to the run without it")
 
 
-def kernel_check_phase(smi_line):
-    """Phase 14c: `python -m fgoicp_tpu_torch.scripts.kernel_check --grid
-    reduced`, whose JSON must read ok true; each row printed."""
-    out = WORK / "kernel_check_reduced.json"
-    proc = subprocess.run(
-        [sys.executable, "-m", "fgoicp_tpu_torch.scripts.kernel_check",
-         "--grid", "reduced", "--out", str(out)], cwd=ROOT,
-        capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"kernel_check exited {proc.returncode}:\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-    res = json.loads(out.read_text())
-    for r in res["rows"]:
-        say(f"kernel_check {r['kernel']} [{r['shape']}] ({smi_line}): "
-            f"{'OK' if r['ok'] else 'MISMATCH'}, max_abs_err "
-            f"{r['max_abs_err']!r}, kernel {r.get('ms')!r} ms"
-            + (f", pairs / box tests {r['pairs_boxes']} of "
-               f"{r['full_pairs']} pairs" if r.get("pairs_boxes") else ""))
-    if not res["ok"]:
-        raise AssertionError("kernel_check: a row did not pass")
-    say(f"kernel_check --grid reduced ({smi_line}): ok, {len(res['rows'])} "
-        f"rows in {res['seconds']!r} s")
-
-
-def tools_phase(torch, counted, launches, reset, trimmed_nodes, smi_line):
+def tools_phase(torch, trimmed_nodes, smi_line):
     """Phase 15: the experiment tools of fgoicp_tpu_torch/scripts, called as
-    functions at their defaults, each with every launch counter set to 0
-    just before it and read just after, and every launch shape it gives the
-    kernels held against the plain versions afterwards (`ShardLaunches`,
-    the plain version once a shape: NN and minplus_1d bit for bit, bounds
-    at phase 2's rtol 2e-4 / atol 2e-5), with its time, bound and library
-    time.  Gates: 15a step_decomp's pieces sum to no more than a step; 15b
-    micro_step's bare kernel to no more than a pooled step; 15c
+    functions at their defaults, each with its launches counted over it,
+    and every launch shape it gives the kernels held against the plain
+    versions afterwards (kernel_check's `Recorder`).  Gates: 15a
+    step_decomp's pieces sum to no more than a step; 15b micro_step's bare
+    kernel to no more than a pooled step; 15c
     mxu_experiment launches nn_min (its norm-expansion errors are printed,
     not gated); 15d minplus_experiment's f64 gate, its kernel bit-equal to
     the plain version at [262,144 x 1,024] and the two EDT fields equal;
@@ -2956,22 +1601,21 @@ def tools_phase(torch, counted, launches, reset, trimmed_nodes, smi_line):
     certified pose in the known pose's basin (R < 5e-3, t < 5e-3 x span
     after one converged trimmed ICP); 15f serving_experiment ragged and
     fallback: every pair certified, and the fallback mode takes a fallback
-    that launches fused_bounds_lanes_trimmed."""
+    that launches fused_bounds_lanes_trimmed; every kernel but
+    fused_bounds held at some shape.  Returns the held rows."""
     from fgoicp_tpu_torch.scripts import (
         hard_pairs, micro_step, minplus_experiment, mxu_experiment,
         serving_experiment, step_decomp)
-    rec = ShardLaunches(torch, TOOL_KERNELS, plain_reps=0)
+    rec = kc.Recorder()
 
     def tool(label, call, need):
-        reset()
+        snap = snapshot()
         t_run = time.time()
         with rec.record(label):
             out = call()
         torch.cuda.synchronize()
         wall = time.time() - t_run
-        launched = {fn.__name__: fn.launches for fn in counted}
-        for key, n in launched.items():
-            launches[key] += n
+        launched = since(snap)[0]
         say(f"{label} ({smi_line}): {wall!r} s, launches {launched}")
         missing = [k for k in need if launched[k] <= 0]
         if missing:
@@ -3068,139 +1712,10 @@ def tools_phase(torch, counted, launches, reset, trimmed_nodes, smi_line):
             if mode == "fallback" and ln["fallbacks"] < 1:
                 raise AssertionError("15f fallback: no pair took the "
                                      "fallback")
-    held = {}
-    for k in rec.check():
-        held[k["name"]] = held.get(k["name"], 0) + 1
-        say(f"{k['label']} launch {k['name']} [{k['shape']}] (of {k['of']} "
-            f"shapes) ({smi_line}): max_abs_err {k['max_abs_err']!r} "
-            f"against its plain version, kernel {k['ms']!r} ms, plain "
-            f"{k['plain_ms']!r} ms, bound {k['bound_ms']!r} ms "
-            f"({k['bound_by']}), library {k['library_ms']!r} ms"
-            f"{shard_work(k)}")
-    missing = [k for k in TOOL_KERNELS if k != "fused_bounds" and
-               not held.get(k)]
-    if missing:
-        raise AssertionError(f"phase 15: kernels {missing} held at no "
-                             f"shape")
-    say(f"phase 15 ({smi_line}): launch shapes held against the plain "
-        f"versions: {held}")
-
-
-ICP_ITERATIONS = 20
-
-
-def device_us(torch, call, kernels, reps=20):
-    """Mean device microseconds a launch of each named kernel over `reps`
-    warm calls of call(), from torch.profiler's device events (a kernel
-    shorter than its wrapper's host time reads as the host's time by CUDA
-    events around calls queued back to back)."""
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    out = {}
-    for name in kernels:
-        events = [e for e in prof.key_averages() if name in e.key
-                  and str(getattr(e, "device_type", "")).endswith("CUDA")]
-        n = sum(e.count for e in events)
-        out[name] = (sum(e.self_device_time_total for e in events) / n
-                     if n else None)
-    return out
-
-
-def compare_icp(torch):
-    """Phase 2, the ICP iteration's kernels at kernel_check.ICP_SHAPES (a
-    seeded surface cloud, starts up to 0.5 rad from the identity, the
-    callers' convergence thresholds): kernel_check.compare_icp_steps, every
-    output of icp_align and icp_commit against their plain versions from
-    the same state at every iteration until the lanes stop, the guard
-    firing; each kernel's and plain version's ms a call by CUDA events
-    (icp_commit with threshold -1, so no lane finishes while it is timed),
-    the host clock's ms an iteration (align, NN, commit, the read of
-    `running`) over ICP_ITERATIONS iterations, kernels against plain
-    versions, and each kernel's device time a launch (`device_us`).
-    Returns the JSON rows of both kernels."""
-    from fgoicp_tpu_torch.ops import cuda_icp
-    from fgoicp_tpu_torch.scripts import kernel_check as kc
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(4)
-    cloud = surface_cloud(rng, 24000)
-    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    align_cases, commit_cases = [], []
-    for g, ns, nt, thr in kc.ICP_SHAPES:
-        pct = T(cloud[rng.choice(len(cloud), nt, replace=False)])
-        src = T(cloud[rng.choice(len(cloud), ns, replace=False)])
-        R0 = T(np.stack([turn(rng, 0.5 * i / g) for i in range(g)]))
-        t0 = T(rng.uniform(-0.05, 0.05, size=(g, 3)).astype(np.float32))
-        shape = f"{g}x{ns} on {nt}"
-        out = kc.compare_icp_steps(pct, src, R0, t0, thr)
-        if not out["ok"]:
-            raise AssertionError(
-                f"icp kernels [{shape}, threshold {thr}] against the plain "
-                f"step: {out} (limits: R / t / last_R / last_t / points "
-                f"{kc.ICP_ATOL}, SSE rtol {kc.ICP_SSE_RTOL}, done within "
-                f"{kc.ICP_GUARD_BAND} of the threshold, guard fired)")
-
-        def align(fn, s):
-            return lambda: fn(pct, s["idx"], None, s["done"], s["cur"],
-                              s["R"], s["t"], s["last_R"], s["last_t"],
-                              s["running"])
-
-        def commit(fn, s):
-            return lambda: fn(s["d2"], None, -1.0, s["done"], s["sse"],
-                              s["last_sse"], s["running"])
-
-        s = kc.icp_state(pct, src, R0, t0)
-        a_ms = cuda_ms(torch, align(cuda_icp.icp_align, s), 20)
-        a_plain = cuda_ms(torch, align(cuda_icp.icp_align_plain, s), 3)
-        c_ms = cuda_ms(torch, commit(cuda_icp.icp_commit, s), 20)
-        c_plain = cuda_ms(torch, commit(cuda_icp.icp_commit_plain, s), 3)
-
-        def iteration_ms(kernels):
-            s = kc.icp_state(pct, src, R0, t0)
-            torch.cuda.synchronize()
-            t_run = time.perf_counter()
-            for _ in range(ICP_ITERATIONS):
-                kc.icp_step(s, pct, -1.0, kernels=kernels)
-                int(s["running"].cpu()[0])
-            return (time.perf_counter() - t_run) * 1e3 / ICP_ITERATIONS
-
-        dev_us = device_us(torch, lambda: (align(cuda_icp.icp_align, s)(),
-                                           commit(cuda_icp.icp_commit, s)()),
-                           ("align_kernel", "commit_kernel"))
-        it_k, it_p = iteration_ms(True), iteration_ms(False)
-        (a_flops, a_bytes), (c_flops, c_bytes) = cuda_icp.traffic(g, ns)
-        case = report("icp_align", shape, max(out["pose_err"],
-                                               out["last_err"]),
-                      a_ms, a_plain, a_flops, a_bytes)
-        case.update(threads=cuda_icp.block_threads(ns), iteration_ms=it_k,
-                    plain_iteration_ms=it_p, steps=out["steps"],
-                    guard_fired=out["guard_fired"],
-                    device_us=dev_us["align_kernel"])
-        align_cases.append(case)
-        case = report("icp_commit", shape, out["sse_rel_err"], c_ms, c_plain,
-                      c_flops, c_bytes)
-        case.update(device_us=dev_us["commit_kernel"])
-        commit_cases.append(case)
-        say(f"icp iteration [{shape}]: {out['steps']} steps against the "
-            f"plain step, {out['guard_fired']} lanes stopped by the guard, "
-            f"R / t / points within {max(out['pose_err'], out['last_err'])!r},"
-            f" SSE within rtol {out['sse_rel_err']!r}; {it_k!r} ms on the "
-            f"kernels, {it_p!r} ms on the plain versions (host clock, align "
-            f"+ NN + commit + one read, {ICP_ITERATIONS} iterations); device "
-            f"time a launch (profiler): icp_align {dev_us['align_kernel']!r}"
-            f" us, icp_commit {dev_us['commit_kernel']!r} us")
-    return [row("icp_align", "fgoicp_tpu_torch/csrc/icp_step.cu",
-                "none (fgoicp_tpu/models/icp.py: XLA ops)",
-                dict(cases=align_cases)),
-            row("icp_commit", "fgoicp_tpu_torch/csrc/icp_step.cu",
-                "none (fgoicp_tpu/models/icp.py: XLA ops)",
-                dict(cases=commit_cases))]
+    rows = rec.check()
+    held("phase 15", rows, smi_line,
+         need=[k for k in kc.RECORDED if k != "fused_bounds"])
+    return rows
 
 
 def main() -> int:
@@ -3212,9 +1727,6 @@ def main() -> int:
 
     from fgoicp_tpu_torch import register
     from fgoicp_tpu_torch.kernels import build
-    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_fps, cuda_icp
-    from fgoicp_tpu_torch.ops import cuda_minplus, cuda_nn
-    from fgoicp_tpu_torch.ops import geometry as geo
     from fgoicp_tpu_torch.utils import trace
 
     # Phase 1: the card, the versions, the kernel build.
@@ -3229,12 +1741,22 @@ def main() -> int:
     lib = build.load()
     say(f"kernel build: {time.time() - t0:.3f} s ({lib._name})")
 
+    # Phase 2: the kernel gate's full grid.
+    t0 = time.time()
+    ok, _, kernels = kc.run_check("full", "cuda")   # rows on stderr
+    if not ok:
+        bad = next(r for r in kernels if not r["ok"])
+        raise AssertionError(f"kernel_check: {kc.describe(bad)}")
+    say(f"kernel_check --grid full ({smi_line}): ok, {len(kernels)} rows in "
+        f"{time.time() - t0!r} s")
+    torch.cuda.empty_cache()
+
     # The smoke pair: seed-0 Lissajous cloud of 24,000 points cut into an
     # 18,000-point target and a 3,000-point source moved by a known pose;
     # and the trimmed phase's partial-overlap pair.
-    cloud = surface_cloud(np.random.default_rng(0), 24000)
-    pair = known_transform_pair(cloud, 18000, 3000)
-    trim_pair = partial_overlap_pair()
+    pair = workloads.smoke_pair()
+    trim_pair = workloads.trimmed_pair()
+    serving = workloads.serving_data()
     dev = torch.device("cuda")
     WORK.mkdir(parents=True, exist_ok=True)
     cfg, pct_in, pcs_in = write_config(
@@ -3243,57 +1765,25 @@ def main() -> int:
         "trimmed", trim_pair[0], trim_pair[1],
         "mse_threshold = 1e-3\ntrim = true\ntrim_fraction = 0.3")
 
-    # Phase 2: kernels against their plain versions, in the normalized frame.
-    norm = geo.Normalization(torch.from_numpy(pair[0]).to(dev),
-                             torch.from_numpy(pair[1]).to(dev))
-    trim_norm = geo.Normalization(torch.from_numpy(trim_pair[0]).to(dev),
-                                  torch.from_numpy(trim_pair[1]).to(dev))
-    serving = serving_data()
-    kernels = compare_kernels(torch, norm.pct.contiguous(),
-                              norm.pcs.contiguous(),
-                              trim_norm.pct.contiguous(),
-                              trim_norm.pcs.contiguous(), serving)
-    kernels.append(compare_minplus(torch, norm))
-    kernels.append(compare_fps(torch))
-    kernels.extend(compare_icp(torch))
-    del norm, trim_norm
-    torch.cuda.empty_cache()
+    # Phases 3 to 7: the main paths through register(Config) and GoICP,
+    # their cold runs under the recorder (`rec`) through phase 9.
+    rec = kc.Recorder()
 
-    # Phases 3 to 7: the main paths through register(Config) and GoICP.
-    counted = (cuda_nn.nn_argmin, cuda_nn.nn_min,
-               cuda_bounds.fused_bounds_lanes,
-               cuda_bounds.fused_bounds_lanes_trimmed,
-               cuda_bounds.fused_bounds, cuda_minplus.minplus_1d,
-               cuda_fps.farthest_point_sample, cuda_icp.icp_align,
-               cuda_icp.icp_commit)
-    launches = {fn.__name__: 0 for fn in counted}
-    nn_fns = (cuda_nn.nn_argmin, cuda_nn.nn_min)
-
-    def reset():
-        for fn in counted:
-            fn.launches = 0
-        for fn in nn_fns:
-            fn.shapes.clear()
-
-    def nn_shapes():
-        """The NN kernels' launches per (M, T) since the last reset."""
-        return {fn.__name__: {f"{m}x{t}": n for (m, t), n in
-                              sorted(fn.shapes.items())} for fn in nn_fns}
-
-    def drive(label, cfg, pct_in, pcs_in, truth, **engine):
-        """Cold then warm register(); returns each run's launches."""
+    def drive(label, cfg, pct_in, pcs_in, truth, record=None, **engine):
+        """Cold then warm register() (the cold run recorded under `record`
+        when given); returns each run's launches."""
         for key, value in engine.items():
             setattr(cfg.engine, key, value)
         out = {}
         for run in ("cold", "warm"):
-            reset()
+            snap = snapshot()
             t_run = time.time()
-            model, R, t = register(cfg, pct_in, pcs_in, device="cuda")
+            with (rec.record(record) if record and run == "cold"
+                  else contextlib.nullcontext()):
+                model, R, t = register(cfg, pct_in, pcs_in, device="cuda")
             torch.cuda.synchronize()
             wall = time.time() - t_run
-            launched = {fn.__name__: fn.launches for fn in counted}
-            for key, n in launched.items():
-                launches[key] += n
+            launched, nn_shapes = since(snap)
             host_reads = trace.requests()[-1].host_reads
             r_err, t_err = pose_errors(R, t, truth)
             s = model.stats
@@ -3305,7 +1795,7 @@ def main() -> int:
                 f"{s.rotation_children}, outer_steps {s.outer_steps}, "
                 f"inner_loop_steps {s.inner_loop_steps}, icp_runs "
                 f"{s.icp_runs}, host reads {host_reads}, "
-                f"launches {launched}, NN launches by shape {nn_shapes()}")
+                f"launches {launched}, NN launches by shape {nn_shapes}")
             check_result(label, model, R, t, r_err, t_err)
             out[run] = dict(model=model, launched=launched, wall=wall,
                             host_reads=host_reads)
@@ -3320,37 +1810,42 @@ def main() -> int:
                 raise AssertionError(f"{label} {run}: kernels {missing} "
                                      f"never launched on the main path")
 
-    default = drive("default", cfg, pct_in, pcs_in, pair,
+    default = drive("default", cfg, pct_in, pcs_in, pair, "3 default",
                     icp_multi_start=True)
     require("default", default,
             ["farthest_point_sample", "icp_align", "icp_commit"], nodes=False)
     search = drive("search-only", cfg, pct_in, pcs_in, pair,
-                   icp_multi_start=False)
+                   "4 search-only", icp_multi_start=False)
     require("search-only", search,
             ["nn_argmin", "nn_min", "fused_bounds_lanes",
              "farthest_point_sample", "icp_align", "icp_commit"])
 
     tdefault = drive("trimmed default", tcfg, tpct_in, tpcs_in, trim_pair,
-                     icp_multi_start=True)
+                     "5 trimmed default", icp_multi_start=True)
     require("trimmed default", tdefault,
             ["farthest_point_sample", "icp_align", "icp_commit"], nodes=False)
     tsearch = drive("trimmed search-only", tcfg, tpct_in, tpcs_in, trim_pair,
-                    icp_multi_start=False)
+                    "5 trimmed search-only", icp_multi_start=False)
     require("trimmed search-only", tsearch,
             ["nn_argmin", "nn_min", "fused_bounds_lanes_trimmed",
              "farthest_point_sample"])
 
     grouped = drive("grouped search-only", cfg, pct_in, pcs_in, pair,
-                    icp_multi_start=False, frontier_mode="grouped")
+                    "6 grouped search-only", icp_multi_start=False,
+                    frontier_mode="grouped")
     require("grouped search-only", grouped,
             ["nn_argmin", "nn_min", "fused_bounds"])
     cfg.engine.frontier_mode = "pooled"
 
-    lut_phase(torch, dev, pair, counted, launches, reset, nn_shapes)
-    # Phase 8 runs no user entry point: its launches are not counted.
+    lut_phase(torch, dev, pair, rec)
+    # Phase 8 runs no user entry point: neither counted nor recorded.
     bunny_field_phase(torch, dev)
-    srv = serving_phase(torch, dev, serving, counted, launches, reset,
-                        nn_shapes, smi_line)
+    srv = serving_phase(torch, dev, serving, rec, smi_line)
+    # Every launch shape of phases 3 to 9 against the plain versions.
+    recorded = rec.check()
+    held("phases 3-9", recorded, smi_line, need=kc.RECORDED)
+    kernels += recorded
+    torch.cuda.empty_cache()
 
     # Phase 10: the device outer loop, its checkpoints and its overflow.
     dsearch = drive("device search-only", cfg, pct_in, pcs_in, pair,
@@ -3365,40 +1860,34 @@ def main() -> int:
     compare_modes("trimmed device search-only", tdsearch, tsearch, smi_line)
     cfg.engine.outer_mode = tcfg.engine.outer_mode = "host"
     host_model = search["warm"]["model"]
-    checkpoint_phase(torch, dev, pair, counted, launches, reset,
-                     host_model.best_sse, host_model.stats.outer_steps)
-    many = overflow_phase(torch, dev, pair, counted, launches, reset,
-                          host_model.best_sse)
+    checkpoint_phase(torch, dev, pair, host_model.best_sse,
+                     host_model.stats.outer_steps)
+    many = overflow_phase(torch, dev, pair, host_model.best_sse)
 
     # Phase 11: the multi-host outer BnB, threads and processes.
-    multihost_phase(torch, dev, pair, counted, launches, reset, many,
-                    smi_line)
+    multihost_phase(torch, dev, pair, many, smi_line)
 
     # Phase 12: the device mesh, gloo processes sharing this card.
     served = srv.register(serving["sources"])
     refs = dict(smoke=search, grouped=grouped, trimmed=tsearch,
                 device=dsearch)
-    mesh_phase(torch, launches,
-               {k: r["warm"]["model"] for k, r in refs.items()},
-               {k: r["warm"]["wall"] for k, r in refs.items()}, served,
-               serving, smi_line)
+    kernels += mesh_phase(
+        {k: r["warm"]["model"] for k, r in refs.items()},
+        {k: r["warm"]["wall"] for k, r in refs.items()}, served, serving,
+        smi_line)
 
     # Phase 13: hosts on meshes, gloo processes sharing this card.
-    hostmesh_phase(launches, many, smi_line)
+    kernels += hostmesh_phase(many, smi_line)
 
-    # Phase 14: the merge update, the CLI's --profile / --debug-nans and
-    # the kernel gate.
+    # Phase 14: the merge update and the CLI's --profile / --debug-nans.
     merge_phase(drive, require, cfg, pct_in, pcs_in, pair,
                 {"host": search, "device": dsearch}, smi_line)
     cli_phase(smi_line)
-    kernel_check_phase(smi_line)
 
     # Phase 15: the experiment tools.
-    tools_phase(torch, counted, launches, reset,
-                tsearch["warm"]["model"].stats.translation_nodes, smi_line)
+    kernels += tools_phase(
+        torch, tsearch["warm"]["model"].stats.translation_nodes, smi_line)
 
-    for krow in kernels:
-        krow["launches"] = launches[krow["name"]]
     if "--profile" in sys.argv[1:]:
         profile_run(torch, register, "trimmed search-only", tcfg, tpct_in,
                     tpcs_in, "bounds_lanes_trimmed_kernel",
@@ -3419,6 +1908,9 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 
 
 def profile_run(torch, register, label, cfg, pct_in, pcs_in, kernel,

@@ -12,9 +12,9 @@ Dispatch: tensors on the CPU go to the plain version, the loop that issues
 about 11 small ops a step; CUDA tensors launch the kernel, all k - 1 steps
 in one launch, or raise — there is no fallback from the card to the plain
 version.  `farthest_point_sample.launches` counts the kernel launches (the
-plain path does not count).  Inside a request each call is a
-"construct.fps" span that adds its k - 1 steps to "fps_steps", and each
-launch adds one to "fps_launches".
+plain path does not count; a request reads it through
+`utils/trace.py::LAUNCH_COUNTERS`).  Inside a request each call is a
+"construct.fps" span that adds its k - 1 steps to "fps_steps".
 
 On the card one block walks every step; where it keeps the points and
 their running minima follows from n alone (`plan_layout`).
@@ -116,7 +116,6 @@ def farthest_point_sample(points: torch.Tensor, k: int,
             SMEM_LIMIT, scratch.data_ptr() or None, idx.data_ptr(), stream),
             "farthest_point_sample")
     farthest_point_sample.launches += 1
-    trace.count("fps_launches")
     return idx
 
 

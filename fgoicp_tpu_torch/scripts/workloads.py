@@ -15,7 +15,9 @@ The experiment tools' stand-ins for the real scans they read with --data:
   bun090): two partial views of the curve, about half of each in the
   other, the source turned 90 degrees about -y and shifted;
 * `skull_synth`: `serving_experiment`'s cloud (the Artec3D skull's
-  98,359 points), chip_smoke.py's serving cloud.
+  98,359 points), chip_smoke.py's serving cloud;
+* `serving_data`: chip_smoke.py's serving phase, a 6,000-point target of
+  `skull_synth`, 32 moved sources and 8 ragged partial views.
 """
 
 from __future__ import annotations
@@ -60,24 +62,28 @@ def pose(span, angle=1.8):
 
 
 def smoke_pair(n_cloud=24000, n_target=18000, n_source=3000):
-    """(pct, pcs, R, t): chip_smoke.py's smoke pair, R @ pcs + t on pct."""
+    """(pct, pcs, R, t, span): chip_smoke.py's smoke pair, R @ pcs + t on
+    pct; span the cloud's largest extent."""
     rng = np.random.default_rng(0)
     cloud = curve(rng, rng.uniform(0.0, 4.5, size=n_cloud))
     rng = np.random.default_rng(5)
     ti = rng.choice(n_cloud, size=n_target, replace=False)
     si = rng.choice(n_cloud, size=n_source, replace=False)
-    R, t = pose(float(np.ptp(cloud, axis=0).max()))
-    return cloud[ti], ((cloud[si] - t) @ R).astype(np.float32), R, t
+    span = float(np.ptp(cloud, axis=0).max())
+    R, t = pose(span)
+    return cloud[ti], ((cloud[si] - t) @ R).astype(np.float32), R, t, span
 
 
 def trimmed_pair(n_target=20000, n_source=10000, seed=3, noise=0.005):
-    """(pct, pcs, R, t): chip_smoke.py's partial-overlap pair."""
+    """(pct, pcs, R, t, span): chip_smoke.py's partial-overlap pair, the
+    target over s in [0, 3.7], the source over [0.95, 4.5] (22.5 % of it
+    beyond the target's part)."""
     rng = np.random.default_rng(seed)
     pct = curve(rng, rng.uniform(0.0, 3.7, size=(n_target,)), noise)
     src = curve(rng, rng.uniform(0.95, 4.5, size=(n_source,)), noise)
     span = float(np.ptp(np.concatenate([pct, src]), axis=0).max())
     R, t = pose(span)
-    return pct, ((src - t) @ R).astype(np.float32), R, t
+    return pct, ((src - t) @ R).astype(np.float32), R, t, span
 
 
 # hard_synth's cloud noise, chosen on the card (PERF.md, section 6): at 1e-4
@@ -134,6 +140,54 @@ def skull_synth():
                  SKULL_NOISE)
 
 
+def random_rotation(rng):
+    """A random rotation by QR, as bench.py's serving lines draw it.  Not
+    uniform: it fixes Q's column signs by Q's own diagonal, not R's
+    (portbench/gen.py keeps the repaired copy); chip_smoke.py's serving
+    thresholds were calibrated on the views it draws."""
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    R = (q * np.sign(np.diag(q))[None, :]).astype(np.float32)
+    if np.linalg.det(R) < 0:
+        R[:, 0] *= -1
+    return R
+
+
+def serving_data():
+    """chip_smoke.py's serving inputs, a stand-in for the JAX bench's
+    serving lines (bench.py::bench_serving): `skull_synth`'s cloud, a
+    6,000-point target drawn from it, 32 sources of 8,000 points at
+    `random_rotation`s and translations up to +-0.25 span, and 8 ragged
+    half-space partial views of 3,000 to 6,000 points at random poses.
+    A dict: pct, span, sources [32, 8000, 3], truth [(R, t)], views,
+    view_truth."""
+    cloud = skull_synth()
+    rng = np.random.default_rng(11)
+    pct = cloud[rng.choice(len(cloud), size=6000, replace=False)]
+    span = float(np.ptp(cloud, axis=0).max())
+
+    def moved(points, rng):
+        R = random_rotation(rng)
+        t = rng.uniform(-0.25, 0.25, size=3).astype(np.float32) * span
+        return (points - t) @ R, (R, t)
+
+    batch = [moved(cloud[rng.choice(len(cloud), size=8000, replace=False)],
+                   rng) for _ in range(32)]
+    rng2 = np.random.default_rng(23)
+    mu = cloud.mean(axis=0)
+    views = []
+    for _ in range(8):
+        nrm = rng2.normal(size=3)
+        nrm /= np.linalg.norm(nrm)
+        part = cloud[(cloud - mu) @ nrm > 0]
+        n = min(len(part), int(rng2.integers(3000, 6001)))
+        views.append(moved(part[rng2.choice(len(part), size=n,
+                                            replace=False)], rng2))
+    return dict(pct=pct, span=span,
+                sources=np.stack([s for s, _ in batch]),
+                truth=[p for _, p in batch], views=[v for v, _ in views],
+                view_truth=[p for _, p in views])
+
+
 def need_data(what: str, data: str) -> None:
     """Refuse a real-scan run without the reference's data directory."""
     if not data or not os.path.isdir(data):
@@ -151,10 +205,10 @@ def load(name: str, data: str = "", scale: float = 1.0):
         pct, pcs = bunny_synth(n(18000), n(3000))
         return pct, pcs, 1e-3, 0.0
     if name == "smoke":
-        pct, pcs, _, _ = smoke_pair(n(24000), n(18000), n(3000))
+        pct, pcs = smoke_pair(n(24000), n(18000), n(3000))[:2]
         return pct, pcs, 1e-3, 0.0
     if name == "trimmed":
-        pct, pcs, _, _ = trimmed_pair(n(20000), n(10000))
+        pct, pcs = trimmed_pair(n(20000), n(10000))[:2]
         return pct, pcs, 1e-3, 0.3
     if name not in REAL:
         raise SystemExit(f"unknown workload {name!r} (one of {NAMES})")

@@ -11,7 +11,9 @@ the host seconds (total, and self: the total less its child spans), the
 counts below, the host reads and their waits, and the deltas over the
 request of the counters the program already keeps: every kernel wrapper's
 `launches` (`ops/cuda_nn`, `ops/cuda_bounds`, `ops/cuda_minplus`,
-`ops/cuda_icp`, read through their modules, never duplicated) and, where the request runs on a
+`ops/cuda_icp`, `ops/cuda_fps`, read through their modules, never
+duplicated; LAUNCH_COUNTERS is the port's one list of its kernel
+wrappers) and, where the request runs on a
 mesh, the mesh axes' `collectives`, `bytes` and `host_copies`.
 `requests()` gives the newest `RING` records, oldest first.  The open
 request is the calling thread's, so thread hosts keep their own.
@@ -29,8 +31,7 @@ the outer SO(3) search in host and device modes), "inner_bnb"
 is named by its kind.
 
 **Counts** (`count(name, n)`, once a call, never once an iteration):
-"fps_steps" (an FPS call's k - 1 steps), "fps_launches" (the FPS
-kernel's launches, `ops/cuda_fps`), "icp_iterations" (an
+"fps_steps" (an FPS call's k - 1 steps), "icp_iterations" (an
 `icp_batched` call's lockstep iterations), "icp_lanes" (its lanes),
 "inner_nodes" (the inner-BnB bound evaluations, the growth of
 `GoICPStats.translation_nodes`), "outer_steps", "rotation_children",
@@ -91,6 +92,7 @@ LAUNCH_COUNTERS = (
                                  "fused_bounds")),
     (f"{_PKG}.ops.cuda_minplus", ("minplus_1d",)),
     (f"{_PKG}.ops.cuda_icp", ("icp_align", "icp_commit")),
+    (f"{_PKG}.ops.cuda_fps", ("farthest_point_sample",)),
 )
 
 _ring: collections.deque = collections.deque(maxlen=RING)

@@ -352,7 +352,7 @@ def test_mirror_grid_bounds_match_pallas():
 def test_one_hot_weights_give_single_terms_bit_for_bit():
     """With one-hot point_weights each node's sum is one term, so the
     mirror's lb / ub equal the plain version's bit for bit whatever the
-    sum order: the check chip_smoke.py makes of the kernels."""
+    sum order: the check kernel_check makes of the kernels."""
     rng, base, prox, gam_ub, gam_lb, _ = _lane_inputs(3, 4, 1, 300, 200)
     gids = T(rng.integers(0, 4, size=(16,)).astype(np.int32))
     t = _cloud(rng, 16, -0.4, 0.4)

@@ -112,7 +112,8 @@ def test_cpu_tensor_takes_the_plain_loop():
     assert torch.equal(got, cuda_fps.farthest_point_sample_plain(pts, 70, 11))
     assert got.dtype == torch.int64 and int(got[0]) == 11
     assert cuda_fps.farthest_point_sample.launches == before
-    assert rec.counts["fps_steps"] == 69 and rec.counts["fps_launches"] == 0
+    assert rec.counts["fps_steps"] == 69
+    assert rec.launches["farthest_point_sample"] == 0
 
 
 @pytest.mark.parametrize("points, k, error", [
@@ -203,5 +204,5 @@ def test_card_one_launch_a_call(card):
         lambda: coreset.farthest_point_sample(p, 1024, 2))()
     rec = trace.requests()[-1]
     assert cuda_fps.farthest_point_sample.launches == before + 1
-    assert rec.counts["fps_launches"] == 1
+    assert rec.launches["farthest_point_sample"] == 1
     assert rec.counts["fps_steps"] == 1023

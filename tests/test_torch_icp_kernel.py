@@ -328,7 +328,7 @@ def card():
 
 
 def _curve(rng, n, noise=0.01):
-    """chip_smoke.py's seeded asymmetric Lissajous curve."""
+    """The seeded asymmetric Lissajous curve (scripts/workloads.py)."""
     s = rng.uniform(0.0, 4.5, size=(n,))
     pts = np.stack([np.cos(s), 0.7 * np.sin(2.0 * s),
                     0.4 * np.sin(3.0 * s + 0.5)], axis=1)

@@ -104,7 +104,7 @@ def _lines(kind, n, lines=70, seed=0):
         # Few distinct values: ties between j inside and across chunks.
         return rng.choice(np.float32([0.0, 0.25, 1.0]), size=(lines, n))
     g = rng.uniform(0.0, 4.0, size=(lines, n)).astype(np.float32)
-    g[::3] = big  # every third line unseeded, as chip_smoke.py draws them
+    g[::3] = big  # every third line unseeded, as kernel_check draws them
     return g
 
 

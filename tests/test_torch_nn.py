@@ -174,7 +174,7 @@ def test_plan_splits_cover_the_targets(m, t, sms, want):
 @pytest.mark.parametrize("t", [1, 1023, 1025, 2049])
 def test_planned_merge_equals_plain(m, t):
     """The merge at the planner's slices for a 132-SM card keeps every value
-    and index of the plain versions (the edge shapes chip_smoke.py runs on
+    and index of the plain versions (the edge shapes kernel_check runs on
     the card)."""
     rng = np.random.default_rng(m * 7919 + t)
     q = torch.from_numpy(rng.uniform(-1, 1, (m, 3)).astype(np.float32))

@@ -7,6 +7,9 @@ CPU at tiny sizes:
   renders (matplotlib, skipped without it), from a result TOML and --run;
 * kernel_check: the tiny grid runs every kernel's row, plain against
   plain on the CPU, prints one JSON object and writes it to --out only;
+  its recorder, on a tiny search-only GoICP, keeps one call a launch shape
+  of each kernel, forwards the wrappers' counters, puts the wrappers back
+  and holds every shape;
 * profile_phases, proxy_sweep: one JSON line a run / size, with the phase
   seconds, ms per ICP iteration and per inner step; a real-scan workload
   without --data is refused;
@@ -25,7 +28,8 @@ import pytest
 
 from fgoicp_tpu_torch.io import write_ply
 from fgoicp_tpu_torch.scripts import kernel_check, workloads
-from test_torch_goicp import _write_config
+from test_goicp import _make_problem
+from test_torch_goicp import _t_engine, _write_config
 from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,6 +105,74 @@ def test_kernel_check_tiny_grid_on_cpu(tmp_path):
     printed = json.loads(proc.stdout.strip().splitlines()[-1])
     assert printed == json.loads(out.read_text())
     assert printed["ok"] and printed["grid"] == "tiny"
+
+
+def _recorded_search(recorder, label, runs=1):
+    from fgoicp_tpu_torch.models.goicp import GoICP
+    pct, pcs, _, _ = _make_problem(seed=0, angle=2.2)
+    with recorder.record(label):
+        for _ in range(runs):
+            GoICP(pct, pcs, mse_threshold=5e-4,
+                  engine=_t_engine(icp_multi_start=False),
+                  bound_backend="proxy", proxy_size=64, device="cpu").run()
+
+
+def test_recorder_keeps_one_call_a_launch_shape():
+    rec = kernel_check.Recorder()
+    _recorded_search(rec, "search", runs=2)
+    kept = {}
+    for (label, name, shapes, kw), (fn, args, kwargs) in rec.calls.items():
+        assert label == "search" and fn.__name__ == name
+        assert shapes == tuple(kernel_check._shape_key(a) for a in args)
+        kept[name] = kept.get(name, 0) + 1
+    assert {"nn_argmin", "nn_min", "fused_bounds_lanes"} <= set(kept)
+    for name, n in kept.items():
+        # Two runs launch the same shapes: each is kept once.
+        assert n == min(len(rec.shapes[("search", name)]),
+                        kernel_check.MAX_SHAPES)
+
+
+def test_recorder_forwards_the_counters_and_restores_the_wrappers():
+    from fgoicp_tpu_torch.ops import cuda_bounds, cuda_minplus, cuda_nn
+    from fgoicp_tpu_torch.utils import trace
+    mods = {"nn_argmin": cuda_nn, "nn_min": cuda_nn,
+            "fused_bounds_lanes": cuda_bounds,
+            "fused_bounds_lanes_trimmed": cuda_bounds,
+            "fused_bounds": cuda_bounds, "minplus_1d": cuda_minplus}
+    real = {name: getattr(mod, name) for name, mod in mods.items()}
+    launches = {name: fn.launches for name, fn in real.items()}
+    shapes = dict(cuda_nn.nn_argmin.shapes)
+    rec = kernel_check.Recorder()
+    with rec.record("counters"):
+        assert all(getattr(mod, name) is not real[name]
+                   for name, mod in mods.items())
+        before = trace.launch_counts()
+        # What each wrapper does after a launch on the card, through the
+        # module attribute the recorder swapped.
+        for name, mod in mods.items():
+            getattr(mod, name).launches += 1
+        cuda_nn.nn_argmin.shapes[(7, 9)] += 1
+        after = trace.launch_counts()
+    assert all(after[name] - before[name] == 1 for name in mods)
+    assert all(getattr(mod, name) is real[name] for name, mod in mods.items())
+    assert all(real[name].launches == launches[name] + 1 for name in mods)
+    assert real["nn_argmin"].shapes[(7, 9)] == shapes.get((7, 9), 0) + 1
+    for name in mods:
+        real[name].launches -= 1
+    real["nn_argmin"].shapes[(7, 9)] -= 1
+
+
+def test_recorder_check_holds_every_shape_on_cpu():
+    rec = kernel_check.Recorder()
+    _recorded_search(rec, "search")
+    n_calls = len(rec.calls)
+    rows = rec.check()
+    assert len(rows) == n_calls > 0 and not rec.calls
+    assert all(r["ok"] and r["label"] == "search" and r["of"] >= 1
+               and r["ms"] is None for r in rows)
+    assert {"nn_argmin", "nn_min", "fused_bounds_lanes"} <= {
+        r["kernel"] for r in rows}
+    assert len({(r["kernel"], r["shape"]) for r in rows}) == len(rows)
 
 
 def test_profile_phases_tiny(tmp_path):
