@@ -71,6 +71,12 @@ _SIGNATURES = {
                          _P),
     # (d2, w, G, ns, threads, threshold, done, sse, last_sse, running, stream)
     "fgoicp_icp_commit": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
+    # (lbs, gids, centers, spans, best_err, best_ub, best_t, active,
+    #  evaluated, dropped, dropped_lb, lb_e, ub_e, share, G, cp, nl,
+    #  min_span, threshold, sqrt3, cluster, smem_limit, scratch, the 11
+    #  output state arrays, lane_gid, gam_t, live, stream)
+    "fgoicp_pool_commit": (*(_P,) * 14, _I, _I, _I, _F, _F, _F, _I, _I, _P,
+                           *(_P,) * 14, _P),
 }
 
 

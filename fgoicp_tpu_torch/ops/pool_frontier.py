@@ -48,10 +48,19 @@ Point-sharded trimming takes the per-point path (the nearest-proxy
 does: the trimmed lane kernel drops the largest terms of its own points,
 and no lane kernel can drop across shards.
 
+Everything a step does after the lane evaluation is a commit
+(ops/cuda_pool.py): the "sort" update off a sharded mesh is `pool_commit`,
+one CUDA launch on the card (the plain torch ops on the CPU), which also
+writes the next step's lane inputs and the live flag; the merge update and
+sharded meshes take `pool_commit_plain`, with the mesh's all-gather and
+psum'd live vote.
+
 The JAX `lax.while_loop` is a Python loop whose condition is read on the
-host once per step.  Every sort is `torch.argsort(stable=True)`: the 8
-children of a node share their parent's lb, and `jnp.argsort` is stable, so
-an unstable sort would change the pool order and the node counts.
+host once per step: on the card a step is the lane kernel, `pool_commit`
+and that read.  Every sort is `torch.argsort(stable=True)` (and the
+kernel's merge lands each node where it would): the 8 children of a node
+share their parent's lb, and `jnp.argsort` is stable, so an unstable sort
+would change the pool order and the node counts.
 
 Pool overflow and the certificate: when valid nodes exceed `capacity`, the
 worst-lb nodes are dropped (counted in `dropped`) and the per-group minimum
@@ -63,63 +72,18 @@ folds the surviving frontier minimum of still-active groups into
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from . import bounds as bounds_ops
-from . import cuda_bounds
+from . import cuda_bounds, cuda_pool
 from . import geometry as geo
 from ..parallel.sharding import any_live, sharded
 from ..utils import trace
-
-INVALID = 1e30
-BIG = 1e10
-
-
-class PoolState(NamedTuple):
-    lbs: torch.Tensor        # [CP] (INVALID marks empty slots)
-    gids: torch.Tensor       # [CP] int64
-    centers: torch.Tensor    # [CP, 3]
-    spans: torch.Tensor      # [CP]
-    best_err: torch.Tensor   # [G] per-group pruning incumbent
-    best_ub: torch.Tensor    # [G] min upper bound seen
-    best_t: torch.Tensor     # [G, 3]
-    active: torch.Tensor     # [G] bool
-    steps: int               # host loop counter
-    evaluated: torch.Tensor  # [G] int64
-    dropped: torch.Tensor    # 0-d int64 (pool-overflow losses)
-    dropped_lb: torch.Tensor  # [G] min lb ever dropped (INVALID = none)
-
-
-def _group_min(values: torch.Tensor, gids: torch.Tensor, g: int):
-    """Per-group minimum of values [N] ([G], INVALID for empty groups)."""
-    out = torch.full((g,), INVALID, dtype=torch.float32, device=values.device)
-    return out.scatter_reduce_(0, gids, values, reduce="amin")
-
-
-def _count_less(a: torch.Tensor, v: torch.Tensor, strict: bool):
-    """The number of entries of sorted `a` [n] below v (strict) or at most
-    v, per query v [m]: JAX's binary search (`_count_less`) as
-    `torch.searchsorted` (right=False counts a < v, right=True a <= v)."""
-    return torch.searchsorted(a, v, right=not strict)
-
-
-def _merge_sorted(a_lb, b_lb, a_payload, b_payload):
-    """Stable merge of two lb-sorted runs, a first on ties: (lb [Na+Nb],
-    [payload [Na+Nb, ...] for each pair of payloads]).  Each element's
-    place is its index in its run plus the count of the other run's
-    elements that go before it; the places form one permutation."""
-    na, nb = a_lb.shape[0], b_lb.shape[0]
-    dev = a_lb.device
-    pos_a = torch.arange(na, device=dev) + _count_less(b_lb, a_lb, True)
-    pos_b = torch.arange(nb, device=dev) + _count_less(a_lb, b_lb, False)
-    inv = torch.empty(na + nb, dtype=torch.int64, device=dev)
-    inv[pos_a] = torch.arange(na, device=dev)
-    inv[pos_b] = na + torch.arange(nb, device=dev)
-    lb = torch.cat([a_lb, b_lb])[inv]
-    return lb, [torch.cat([pa, pb])[inv] for pa, pb in zip(a_payload,
-                                                           b_payload)]
+# The state, the sentinels and the update's helpers live with the commit.
+from .cuda_pool import (BIG, INVALID, PoolState, _count_less,  # noqa: F401
+                        _group_min, _merge_sorted)
 
 
 def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
@@ -188,7 +152,8 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
         slack = float(trace.to_host(backend.coreset.eps))
     share = None
     if err_share_from is not None:
-        share = torch.as_tensor(err_share_from, device=dev).long()
+        share = torch.as_tensor(err_share_from, device=dev).long() \
+            .contiguous()
 
     cp = capacity
     gid0 = torch.arange(cp, device=dev) % g
@@ -216,17 +181,32 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
         dropped=torch.zeros((), dtype=torch.int64, device=dev),
         dropped_lb=torch.full((g,), INVALID, **f32),
     )
-    grange = torch.arange(g, device=dev)
+    # The "sort" update off a sharded mesh commits through `pool_commit`
+    # (one launch on the card), which also writes the next step's lane
+    # inputs and the live flag into `buf`; the merge update and sharded
+    # meshes take the plain commit, with the lane inputs made here and the
+    # live vote psum'd by `any_live`.
+    buf = None
+    if pool_update == "sort" and not any(
+            sharded(a) for a in (err_share_axis, *vote_axes)):
+        buf = cuda_pool.CommitBuffers(s, lanes)
 
-    while s.steps < max_steps and any_live(s.active, vote_axes):
-        pop_lb = s.lbs[:lanes]
+    def live(s):
+        if s.steps >= max_steps:
+            return False
+        if buf is None:
+            return any_live(s.active, vote_axes)
+        return bool(trace.to_host(buf.live)[0])
+
+    while live(s):
         pop_gid = s.gids[:lanes]
         pop_c = s.centers[:lanes]
-        pop_s = s.spans[:lanes]
-        nl = pop_lb.shape[0]
-        lane_valid = ((pop_lb < INVALID) & (pop_lb < s.best_err[pop_gid])
-                      & s.active[pop_gid])
-        gam_t_l = geo.translation_uncertainty_radius(pop_s)
+        if buf is None:
+            pop_gid32 = pop_gid.to(torch.int32)
+            gam_t_l = geo.translation_uncertainty_radius(
+                s.spans[:lanes]).contiguous()
+        else:
+            pop_gid32, gam_t_l = buf.lane_gid, buf.gam_t
         if per_point:
             lb_pt, ub_pt = bounds_ops.point_terms(
                 backend, base[pop_gid] + pop_c[:, None, :],
@@ -244,90 +224,23 @@ def bnb_r3_pooled(backend: bounds_ops.Backend, pcs: torch.Tensor,
                     drop_mode="under")
         elif n_drop > 0:
             lb_e, ub_e = cuda_bounds.fused_bounds_lanes_trimmed(
-                base, pop_gid.to(torch.int32), pop_c.contiguous(),
-                backend.buckets, gam_ub, gam_t_l.contiguous(), slack, n_drop,
-                point_weights=point_weights, gam_lb=gam_lb,
-                point_order=point_order)
+                base, pop_gid32, pop_c.contiguous(), backend.buckets, gam_ub,
+                gam_t_l, slack, n_drop, point_weights=point_weights,
+                gam_lb=gam_lb, point_order=point_order)
         else:
             lb_e, ub_e = cuda_bounds.fused_bounds_lanes(
-                base, pop_gid.to(torch.int32), pop_c.contiguous(),
-                backend.buckets, gam_ub, gam_t_l.contiguous(), slack,
-                point_weights=point_weights, gam_lb=gam_lb,
+                base, pop_gid32, pop_c.contiguous(), backend.buckets, gam_ub,
+                gam_t_l, slack, point_weights=point_weights, gam_lb=gam_lb,
                 point_order=point_order)
             if sharded(points_axis):
                 lb_e, ub_e = points_axis.psum(lb_e), points_axis.psum(ub_e)
-        lb_e = torch.where(lane_valid, lb_e, BIG)
-        ub_e = torch.where(lane_valid, ub_e, BIG)
-
-        # Per-group incumbent updates via one-hot reductions [L, G].
-        onehot = pop_gid[:, None] == grange[None, :]
-        ub_grid = torch.where(onehot, ub_e[:, None], BIG)
-        grp_min_ub, grp_arg = torch.min(ub_grid, dim=0)         # first lane
-        best_ub = torch.where(s.active, torch.minimum(s.best_ub, grp_min_ub),
-                              s.best_ub)
-        improve = s.active & (grp_min_ub < s.best_err)
-        best_err = torch.where(improve, grp_min_ub, s.best_err)
-        best_t = torch.where(improve[:, None], pop_c[grp_arg], s.best_t)
-        if share is not None:
-            pool_err = (err_share_axis.all_gather(best_err)
-                        if sharded(err_share_axis) else best_err)
-            donor = pool_err[torch.clamp(share, min=0)]
-            best_err = torch.where(share >= 0, torch.minimum(best_err, donor),
-                                   best_err)
-
-        # Children inherit the evaluated lb (fgoicp.cpp:159-166).
-        split = lane_valid & (lb_e < best_err[pop_gid]) & (pop_s >= min_span)
-        ch_c, ch_s = geo.split_octree(pop_c, pop_s)             # [L, 8, 3]
-        ch_lb = torch.where(split, lb_e, INVALID)[:, None].expand(nl, 8)
-        ch_gid = pop_gid[:, None].expand(nl, 8)
-
-        if pool_update == "sort":
-            all_lb = torch.cat([s.lbs[lanes:], ch_lb.reshape(-1)])
-            all_gid = torch.cat([s.gids[lanes:], ch_gid.reshape(-1)])
-            all_c = torch.cat([s.centers[lanes:], ch_c.reshape(-1, 3)])
-            all_s = torch.cat([s.spans[lanes:], ch_s.reshape(-1)])
-            # Re-check dominance against the fresher incumbent and inactive
-            # groups before sorting (ref pops-and-drops, fgoicp.cpp:127).
-            keep = ((all_lb < INVALID) & (all_lb < best_err[all_gid])
-                    & s.active[all_gid])
-            all_lb = torch.where(keep, all_lb, INVALID)
-            order = torch.argsort(all_lb, stable=True)
-            all_gid, all_c, all_s = (all_gid[order], all_c[order],
-                                     all_s[order])
-            all_lb = all_lb[order]
-            rest_lb = all_lb[cp:]
+        if buf is None:
+            s = cuda_pool.pool_commit_plain(
+                s, lb_e, ub_e, share, min_span, sse_threshold,
+                pool_update=pool_update, err_share_axis=err_share_axis)
         else:
-            # The children's keys: the parents' sorted stably, repeated.
-            par_key = torch.where(split, lb_e, INVALID)
-            par_order = torch.argsort(par_key, stable=True)
-            b_lb = par_key[par_order].repeat_interleave(8)
-            all_lb, (all_gid, all_c, all_s) = _merge_sorted(
-                s.lbs[lanes:], b_lb,
-                (s.gids[lanes:], s.centers[lanes:], s.spans[lanes:]),
-                (ch_gid[par_order].reshape(-1),
-                 ch_c[par_order].reshape(-1, 3),
-                 ch_s[par_order].reshape(-1)))
-            keep = ((all_lb < INVALID) & (all_lb < best_err[all_gid])
-                    & s.active[all_gid])
-            rest_lb = torch.where(keep[cp:], all_lb[cp:], INVALID)
-        n_valid = torch.sum(keep)
-        dropped = s.dropped + torch.clamp(n_valid - cp, min=0)
-        # Certificate soundness under overflow: the per-group minimum lb
-        # among dropped (still-valid) nodes clamps the group's lb later.
-        dropped_lb = torch.minimum(
-            s.dropped_lb, _group_min(rest_lb, all_gid[cp:], g))
-        new_lb, new_gid = all_lb[:cp], all_gid[:cp]
-
-        minlb = _group_min(new_lb, new_gid, g)
-        converged = (best_err - minlb) < sse_threshold
-        empty = minlb >= INVALID
-        evaluated = s.evaluated + torch.sum(
-            onehot & lane_valid[:, None], dim=0)
-        s = PoolState(
-            lbs=new_lb, gids=new_gid, centers=all_c[:cp], spans=all_s[:cp],
-            best_err=best_err, best_ub=best_ub, best_t=best_t,
-            active=s.active & ~(converged | empty), steps=s.steps + 1,
-            evaluated=evaluated, dropped=dropped, dropped_lb=dropped_lb)
+            s = cuda_pool.pool_commit(s, lb_e, ub_e, share, min_span,
+                                      sse_threshold, buf)
 
     trace.count("pool_steps", s.steps)
     # A max_steps exit leaves still-active groups with unexplored frontier

@@ -36,14 +36,18 @@ Two ways in, one comparison per kernel kind (`hold`):
     each step also taken on the kernels from the same state
     (`compare_icp_steps`); the two kernels' device time a launch by the
     profiler (`device_us`) and the host's ms an iteration;
+  - `pool_commit` on a seeded mid-search pool (`pool_commit_args`) at the
+    search cell's G 256, L 1,024, CP 32,768, and at G 6, L 64, CP 64 (every
+    slot a lane, the children overflow): every output bit for bit, with
+    its device time a launch and its byte bound (`cuda_pool.traffic`);
 * the recorder (`Recorder`): while installed, the wrappers of RECORDED keep
   the arguments of their first launch at each distinct shape as the
   program gives them, and `check` then holds each.  chip_smoke.py records
   its main paths, serving, meshes and tools this way.
-Tolerances: NN, FPS indices and `minplus_1d` bit for bit (and the argmin
-winner's rescore equal to its d2); bounds finite, rtol 2e-4 / atol 2e-5,
-lb <= ub; the ICP step's R, t, last_R, last_t and moved points within
-2e-5, its SSE within rtol 1e-4 (the kernels sum in another order than
+Tolerances: NN, FPS indices, `pool_commit` and `minplus_1d` bit for bit
+(and the argmin winner's rescore equal to its d2); bounds finite, rtol 2e-4 /
+atol 2e-5, lb <= ub; the ICP step's R, t, last_R, last_t and moved points
+within 2e-5, its SSE within rtol 1e-4 (the kernels sum in another order than
 torch), last_sse and the lanes already done bit for bit, `done` and
 `running` equal but where rounding may decide the loop guard, and the
 guard must fire.
@@ -64,6 +68,7 @@ passes.
 from __future__ import annotations
 
 import argparse
+import copy
 import inspect
 import json
 import os
@@ -122,6 +127,9 @@ ICP_SHAPES = ((15, 1024, 1024, 0.05), (1, 3037, 17953, 5e-4),
 # relative improvement lies within ICP_GUARD_BAND of the threshold.
 ICP_ATOL, ICP_SSE_RTOL, ICP_GUARD_BAND = 2e-5, 1e-4, 1e-5
 ICP_MAX_STEPS = 100
+# pool_commit's (groups, lanes, slots, valid slots): the search cell's
+# pooled step, and every slot a lane with the children overflowing.
+COMMIT_SHAPES = ((256, 1024, 32768, 20000), (6, 64, 64, 60))
 # Iterations the host clock times an ICP iteration over.
 ICP_ITERATIONS = 20
 
@@ -143,8 +151,8 @@ EDGES = dict(nn_m=(1, 127, 129), nn_t=(1, 1023, 1025, 2049), lattice=16,
 # (ns, keep), grid (G, B, ns, P), NN anchors (queries, proxies), minplus
 # (lines, n), shard lanes (G, L, ns, P), shard grid (G, B, ns, P), shard NN
 # argmin (M, T), shard NN min (M, T), FPS (n, k) pairs, ICP (lanes, ns, nt,
-# convergence threshold), the polish (M, T) whose slice plan is checked,
-# edge cases).
+# convergence threshold), pool_commit (G, L, CP, valid slots), the polish
+# (M, T) whose slice plan is checked, edge cases).
 GRIDS = {
     "full": dict(
         nt=18000, pool=20000, proxies=(1024, 4096),
@@ -156,7 +164,8 @@ GRIDS = {
         shard_argmin=(48000, 9000), shard_min=(24000, 9000),
         fps=((17953, 1024), (3037, 1024), (8000, 2048), (6000, 4096),
              (6000, 1024)),
-        icp=ICP_SHAPES, polish=(3000, 18000), edges=EDGES),
+        icp=ICP_SHAPES, commit=COMMIT_SHAPES, polish=(3000, 18000),
+        edges=EDGES),
     "reduced": dict(
         nt=18000, pool=20000, proxies=(1024,), ns=(512, 3037),
         trimmed=((3037, 2126), (30000, 21000)), grid=(16, 32, 3037, 1024),
@@ -164,14 +173,15 @@ GRIDS = {
         shard_lanes=(256, 1024, 512, 1024), shard_grid=(256, 32, 1500, 1024),
         shard_argmin=(48000, 9000), shard_min=(24000, 9000),
         fps=((17953, 1024), (3037, 1024)),
-        icp=(ICP_SHAPES[0], ICP_SHAPES[2]), polish=(3000, 18000),
-        edges=EDGES),
+        icp=(ICP_SHAPES[0], ICP_SHAPES[2]), commit=COMMIT_SHAPES,
+        polish=(3000, 18000), edges=EDGES),
     "tiny": dict(
         nt=600, pool=400, proxies=(32,), ns=(48,), trimmed=((64, 45),),
         grid=(4, 4, 64, 32), anchors=(128, 32), minplus=((16, 20),),
         shard_lanes=(8, 16, 32, 32), shard_grid=(4, 4, 48, 32),
         shard_argmin=(64, 90), shard_min=(48, 90), fps=((600, 32), (90, 16)),
-        icp=((3, 48, 90, 0.05),), polish=(3000, 18000),
+        icp=((3, 48, 90, 0.05),), commit=((6, 16, 64, 40), (6, 16, 16, 12)),
+        polish=(3000, 18000),
         edges=dict(nn_m=(1, 5), nn_t=(1, 33), lattice=8, far=(20, 50),
                    bounds_p=(1, 33), bounds_ns=(1, 33), box_lattice=3,
                    dup=(20, 10, 3), far_bounds=(10, 20),
@@ -302,7 +312,7 @@ def _describe(fn, args, kw):
     call, torch.cdist then the min, where its [M, T] matrix has fewer than
     2^31 elements."""
     import torch
-    from ..ops import cuda_bounds, cuda_fps, cuda_minplus, cuda_nn
+    from ..ops import cuda_bounds, cuda_fps, cuda_minplus, cuda_nn, cuda_pool
     a = _arguments(fn, args, kw)
     name = fn.__name__
     if name in NN_INSTRS:
@@ -328,6 +338,24 @@ def _describe(fn, args, kw):
                     nbytes=8.0 * lines * n, instrs=None,
                     counted=lambda c: cuda_minplus._launch(g, res, c),
                     extra=0.0)
+    if name == "pool_commit":
+        st, buf = a["s"], a["buf"]
+        g, cp, nl = st.best_err.shape[0], st.lbs.shape[0], buf.gam_t.shape[0]
+
+        def outputs(commit):
+            # Every state tensor and what the commit writes into a copy of
+            # the buffers.
+            b = copy.copy(buf)
+            b.lane_gid, b.gam_t, b.live = (
+                x.clone() for x in (buf.lane_gid, buf.gam_t, buf.live))
+            new = commit(st, a["lb_e"], a["ub_e"], a["share"], a["min_span"],
+                         a["sse_threshold"], b)
+            return tuple(getattr(new, f) for f in new._fields
+                         if f != "steps") + (b.lane_gid, b.gam_t, b.live)
+        return dict(plain=lambda: outputs(cuda_pool.pool_commit_plain),
+                    call=lambda: outputs(fn), shape=f"G{g} L{nl} CP{cp}",
+                    flops=0.0, nbytes=cuda_pool.traffic(g, cp, nl),
+                    instrs=None, counted=None, extra=0.0)
     if name == "farthest_point_sample":
         p, k, seed = a["points"], a["k"], a["seed"]
         n = p.shape[0]
@@ -429,7 +457,8 @@ def hold(fn, args, kw=None, prefix=""):
     how = _describe(fn, args, kw)
     device = next(a.device for a in args if hasattr(a, "device"))
     want, plain_ms = timed_once(how["plain"], device)
-    ok, err = compare(name, fn(*args, **kw), want)
+    ok, err = compare(name, how["call"]() if "call" in how
+                      else fn(*args, **kw), want)
     del want
     full_ms, bound_by = bound(how["flops"], how["nbytes"])
     fields = dict(plain_ms=plain_ms, full_scan_bound_ms=full_ms,
@@ -688,6 +717,39 @@ def _icp_row(target, src, R0, t0, threshold):
                threads=cuda_icp.block_threads(ns))
 
 
+def pool_commit_args(g, nl, cp, n_valid, device, seed=0):
+    """`pool_commit`'s arguments at a seeded mid-search pool of cp slots:
+    n_valid sorted lbs in [0, 1) then INVALID, uniform group ids, centers
+    and spans 2^-1..2^-5; per group best_err in [0.5, 1.5) (some entries
+    dominated), 90 % active, the second half of the groups twins of the
+    first; the first nl slots' bounds lb + [0, 0.3) and that + [0, 0.5);
+    min_span 0.1, threshold 1e-3."""
+    import torch
+    from ..ops import cuda_pool
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    lbs = np.full(cp, cuda_pool.INVALID, np.float32)
+    lbs[:n_valid] = np.sort(rng.uniform(0.0, 1.0, n_valid))
+    best_err = rng.uniform(0.5, 1.5, g)
+    s = cuda_pool.PoolState(
+        lbs=f32(lbs), gids=i64(rng.integers(0, g, cp)),
+        centers=f32(rng.uniform(-1, 1, (cp, 3))),
+        spans=f32(0.5 ** rng.integers(1, 6, cp)), best_err=f32(best_err),
+        best_ub=f32(best_err + rng.uniform(0, 0.5, g)),
+        best_t=f32(rng.uniform(-1, 1, (g, 3))),
+        active=torch.as_tensor(rng.uniform(size=g) < 0.9, device=device),
+        steps=3, evaluated=i64(rng.integers(0, 1000, g)), dropped=i64(5),
+        dropped_lb=f32(np.where(rng.uniform(size=g) < 0.2,
+                                rng.uniform(0, 1, g), cuda_pool.INVALID)))
+    nl = min(nl, cp)
+    lb_e = f32(lbs[:nl] + rng.uniform(0, 0.3, nl))
+    ub_e = lb_e + f32(rng.uniform(0, 0.5, nl))
+    half = g // 2
+    share = i64(np.where(np.arange(g) < half, -1, np.arange(g) - half))
+    return (s, lb_e, ub_e, share, 0.1, 1e-3, cuda_pool.CommitBuffers(s, nl))
+
+
 def _nn_edges(e, dev, add):
     """The NN kernels at edge shapes, bit for bit: M x T of e["nn_m"] x
     e["nn_t"]; a lattice of side e["lattice"] listed 3 times (copies a
@@ -936,6 +998,7 @@ def run_check(grid: str = "full", device: str = "cuda"):
     import torch
     from ..ops import bounds as bounds_ops
     from ..ops import coreset, cuda_bounds, cuda_fps, cuda_minplus, cuda_nn
+    from ..ops import cuda_pool
     from ..ops import geometry as geo
     from .workloads import bunny_synth
 
@@ -1102,6 +1165,15 @@ def run_check(grid: str = "full", device: str = "cuda"):
         t0 = f32(rng.uniform(-0.05, 0.05, size=(g, 3)))
         add(_icp_row(tgt[:nt].contiguous(), pool[:ns].contiguous(), R0, t0,
                      thr))
+    for g, nl, cp, n_valid in spec["commit"]:
+        args = pool_commit_args(g, nl, cp, n_valid, dev)
+        r = hold(cuda_pool.pool_commit, args)
+        r.update(cluster=cuda_pool.plan_cluster(cp, min(nl, cp)),
+                 workspace_bytes=cuda_pool.workspace_bytes(g, min(nl, cp)),
+                 device_us=device_us(
+                     lambda: cuda_pool.pool_commit(*args),
+                     ("pool_commit_kernel",), dev))
+        add(r)
     return (all(r["ok"] for r in rows), [describe(r) for r in rows], rows)
 
 

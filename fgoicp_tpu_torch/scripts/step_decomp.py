@@ -10,6 +10,10 @@ a loop of --iters calls, as the port's step computes it:
   incumbent: the [L, G] one-hot minimum and first arg-minimum of the
              lanes' upper bounds;
   kernel   : the lane kernel `cuda_bounds.fused_bounds_lanes`.
+Beside them, `commit_ms`: everything the step does after the lane kernel
+in one call of `cuda_pool.pool_commit` (one launch on the card), on
+`kernel_check.pool_commit_args`'s seeded pool of CP slots, five eighths
+valid; the pieces above are the plain commit's parts.
 Then a full step: `bnb_r3_pooled` on micro_step's pool with every group at
 a fixed rotation, by the finite difference of --iters / 2 and --iters
 steps.  (With micro_step's free rotations the groups' upper bounds reach 0
@@ -92,7 +96,8 @@ def pool_arrays(rng, n, groups, device):
 def run(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     import torch
-    from ..ops import cuda_bounds
+    from ..ops import cuda_bounds, cuda_pool
+    from . import kernel_check
 
     dev = torch.device(args.device)
     rng = np.random.default_rng(0)
@@ -124,6 +129,13 @@ def run(argv=None) -> dict:
             lb, _ = micro_step.launch_lanes(problem["kernel_args"], t)
             t = t + 1e-7 * lb[:, None]
 
+    commit_args = kernel_check.pool_commit_args(G, L, CP, CP * 5 // 8, dev)
+
+    def commit_loop():
+        for _ in range(it):
+            cuda_pool.pool_commit(*commit_args)
+
+    commit_ms = timing.best_ms(commit_loop, dev, reps=5) / it
     pieces = {name: timing.best_ms(fn, dev, reps=5) / it for name, fn in (
         ("sort", sort_loop), ("group_min", min_loop),
         ("incumbent", incumbent_loop), ("kernel", kernel_loop))}
@@ -150,7 +162,8 @@ def run(argv=None) -> dict:
         "tool": "step_decomp", "device": str(dev), "lanes": L,
         "capacity": CP, "groups": G, "ns": args.ns, "proxy": args.proxy,
         "iters": it, "pool_keys": CP + 8 * L,
-        "pieces_ms": pieces, "pieces_sum_ms": pieces_ms, "step_ms": step,
+        "pieces_ms": pieces, "pieces_sum_ms": pieces_ms,
+        "commit_ms": commit_ms, "step_ms": step,
         "step_minus_pieces_ms": step - pieces_ms, "drain_step": ran,
         "step_launches": per(2), "step_host_reads": per(1),
         "step_lane_kernel_launches": lane_launches,

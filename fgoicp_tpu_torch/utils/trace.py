@@ -11,9 +11,9 @@ the host seconds (total, and self: the total less its child spans), the
 counts below, the host reads and their waits, and the deltas over the
 request of the counters the program already keeps: every kernel wrapper's
 `launches` (`ops/cuda_nn`, `ops/cuda_bounds`, `ops/cuda_minplus`,
-`ops/cuda_icp`, `ops/cuda_fps`, read through their modules, never
-duplicated; LAUNCH_COUNTERS is the port's one list of its kernel
-wrappers) and, where the request runs on a
+`ops/cuda_icp`, `ops/cuda_fps`, `ops/cuda_pool`, read through their
+modules, never duplicated; LAUNCH_COUNTERS is the port's one list of its
+kernel wrappers) and, where the request runs on a
 mesh, the mesh axes' `collectives`, `bytes` and `host_copies`.
 `requests()` gives the newest `RING` records, oldest first.  The open
 request is the calling thread's, so thread hosts keep their own.
@@ -93,6 +93,7 @@ LAUNCH_COUNTERS = (
     (f"{_PKG}.ops.cuda_minplus", ("minplus_1d",)),
     (f"{_PKG}.ops.cuda_icp", ("icp_align", "icp_commit")),
     (f"{_PKG}.ops.cuda_fps", ("farthest_point_sample",)),
+    (f"{_PKG}.ops.cuda_pool", ("pool_commit",)),
 )
 
 _ring: collections.deque = collections.deque(maxlen=RING)

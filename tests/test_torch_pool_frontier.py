@@ -231,3 +231,55 @@ def test_pooled_unported_options_raise(kw, match):
         got = tpool.bnb_r3_pooled(*args, **kw2, **axes)
         for f, a, b in zip(want._fields, got, want):
             assert (a == b if f == "steps" else torch.equal(a, b)), f
+
+
+@pytest.mark.parametrize("case", ["seed 0", "seed 1", "incumbent and inactive",
+                                  "overflow", "max_steps"])
+def test_sort_steps_keep_the_pool_sorted(case, monkeypatch):
+    """The invariant the commit kernel's merge rests on (csrc/pool_step.cu,
+    fact (a)): after every "sort" step the valid entries (lb < INVALID) come
+    first, nondecreasing in index order, and the INVALID ones form the tail.
+    On the CPU the commit is the plain version: no kernel launches."""
+    seed, kw = {
+        "seed 0": (0, dict(min_span=0.2, lanes=32, capacity=4096)),
+        "seed 1": (1, dict(min_span=0.2, lanes=32, capacity=4096)),
+        "incumbent and inactive": (2, dict(
+            best_sse=5.0, lanes=32, capacity=4096, group_active=np.asarray(
+                [True, False, True, True, False, True]))),
+        "overflow": (4, dict(lanes=8, capacity=10, max_steps=3000)),
+        "max_steps": (6, dict(lanes=8, capacity=4096, max_steps=2)),
+    }[case]
+    backend, clusters, R2, spans2, fix2, share = _problem(seed=seed)
+    best_sse = kw.pop("best_sse", 1e9)
+    act = kw.pop("group_active", None)
+    cs, cl = tcoreset.state_from_numpy(
+        {"points": backend.coreset.points, "eps": backend.coreset.eps,
+         "reps": clusters.reps, "weights": clusters.weights,
+         "deltas": clusters.deltas}, "cpu")
+    commit = tpool.cuda_pool.pool_commit
+    states = []
+
+    def recorded(*args):
+        states.append(commit(*args))
+        return states[-1]
+
+    monkeypatch.setattr(tpool.cuda_pool, "pool_commit", recorded)
+    before = (commit.launches, cuda_bounds.fused_bounds_lanes.launches)
+    st = tpool.bnb_r3_pooled(
+        tbounds.ProxyBackend(coreset=cs), cl.reps, torch.from_numpy(R2),
+        torch.from_numpy(spans2), torch.from_numpy(fix2),
+        float(np.float32(best_sse)), float(np.float32(1e-4)),
+        group_active=None if act is None else torch.from_numpy(act),
+        point_weights=cl.weights, point_deltas=cl.deltas,
+        err_share_from=torch.from_numpy(share), **kw)
+    assert (commit.launches,
+            cuda_bounds.fused_bounds_lanes.launches) == before
+    assert len(states) == st.steps > 1
+    for s in states:
+        lbs = s.lbs.numpy()
+        valid = lbs < np.float32(INVALID)
+        n = int(valid.sum())
+        assert valid[:n].all() and not valid[n:].any(), s.steps
+        assert np.all(np.diff(lbs[:n]) >= 0), s.steps
+    if case == "overflow":
+        assert int(st.dropped) > 0

@@ -96,7 +96,8 @@ def test_kernel_check_tiny_grid_on_cpu(tmp_path):
     assert kernels == {"fused_bounds_lanes", "fused_bounds_lanes_trimmed",
                        "fused_bounds", "nn_min", "nn_argmin",
                        "argmin winner rescore", "minplus_1d",
-                       "farthest_point_sample", "icp_align+icp_commit"}
+                       "farthest_point_sample", "icp_align+icp_commit",
+                       "pool_commit"}
     assert any(r["shape"].startswith("shard ") for r in rows)
     out = tmp_path / "kc.json"
     proc = _tool("kernel_check", "--grid", "tiny", "--device", "cpu",

@@ -23,7 +23,7 @@ from fgoicp_tpu_torch.models import icp as ticp
 from fgoicp_tpu_torch.models.goicp import GoICP, register
 from fgoicp_tpu_torch.models.serving import RegistrationService
 from fgoicp_tpu_torch.ops import coreset, cuda_bounds, cuda_icp, cuda_minplus
-from fgoicp_tpu_torch.ops import cuda_fps, cuda_nn
+from fgoicp_tpu_torch.ops import cuda_fps, cuda_nn, cuda_pool
 from fgoicp_tpu_torch.ops import procrustes
 from fgoicp_tpu_torch.utils import trace
 from test_serving import _make_pairs, _rot, _surface
@@ -265,7 +265,8 @@ def test_launch_and_mesh_deltas_read_the_existing_counters():
                 cuda_bounds.fused_bounds_lanes,
                 cuda_bounds.fused_bounds_lanes_trimmed,
                 cuda_minplus.minplus_1d, cuda_icp.icp_align,
-                cuda_icp.icp_commit, cuda_fps.farthest_point_sample)
+                cuda_icp.icp_commit, cuda_fps.farthest_point_sample,
+                cuda_pool.pool_commit)
 
     def work():
         trace.watch_mesh(mesh)
